@@ -42,3 +42,11 @@ except AttributeError:
     # jax < 0.5 has no jax_num_cpu_devices; the XLA_FLAGS
     # --xla_force_host_platform_device_count=8 above covers it there
     pass
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card; skips without one (the PyTorch port's "
+        "kernel checks run on the card through chip_smoke.py)",
+    )

@@ -1,0 +1,55 @@
+"""chip_smoke.py on the CPU: its main path at a tiny size (the rehearsal a
+chip run should follow), and its refusal to report a result without a card
+or outside a checkout."""
+
+import os
+import shutil
+import subprocess
+import sys
+
+import torch
+
+import chip_smoke
+from torchft_tpu_torch.models import transformer as tf
+from torchft_tpu_torch.ops import flash_attention as fa
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_main_path_rehearsal_on_cpu():
+    cfg = tf.TransformerConfig(
+        vocab_size=256, d_model=64, n_heads=2, n_kv_heads=1, d_ff=128,
+        n_layers=1, max_seq_len=128, dtype=torch.float32, remat=False,
+        attn_impl="flash",
+    )
+    before = fa.flash_fwd_plain.calls
+    summary = chip_smoke.main_path(cfg, batch=1, seq=128, device="cpu")
+    assert summary["rejoiner_phases_ms"]["heal_recv"] > 0
+    assert summary["survivor_phases_ms"]["heal_send"] > 0
+    assert len(summary["losses"]) == 10  # 5 + 3 + 2 group-steps
+    assert all(x == x for x in summary["losses"])
+    # on CPU tensors the wrappers take the twins: 10 group-steps x 1 layer
+    assert fa.flash_fwd_plain.calls - before == 10
+
+
+def _run(args, cwd, env):
+    return subprocess.run(
+        [sys.executable, *args], cwd=cwd, env=env, capture_output=True,
+        text=True, timeout=120,
+    )
+
+
+def test_refuses_without_a_card_and_outside_a_checkout(tmp_path):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    out = _run([os.path.join(REPO, "chip_smoke.py")], REPO, env)
+    assert out.returncode != 0 and '"ok"' not in out.stdout
+    # alone in a directory it must fail even where a card answers: the port
+    # is not importable there (the card is faked for this check)
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+    env.pop("PYTHONPATH", None)
+    out = _run(
+        ["-c", "import sys, torch; torch.cuda.is_available = lambda: True; "
+         "import chip_smoke; sys.exit(chip_smoke.main())"],
+        tmp_path, env,
+    )
+    assert out.returncode != 0 and "not importable" in out.stderr

@@ -1,0 +1,140 @@
+"""Build and bind the port's hand-written CUDA kernels (``csrc/*.cu``).
+
+Each ``.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into its own shared
+library with a plain C interface under ``build/kernels/`` (gitignored), on
+first use, from the sources in this checkout only; all sources compile at
+once, one ``nvcc`` each.  The libraries are loaded with ``ctypes``: tensors
+pass as ``data_ptr()`` integers, the stream as
+``torch.cuda.current_stream().cuda_stream``, and every C entry point returns
+``cudaGetLastError()`` after its launch, which :func:`check` turns into a
+``RuntimeError``.
+
+Nothing here runs when the module is imported: the CPU tests import every
+module, and this machine-independent part must not need ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+import time
+from typing import Dict, List, Optional
+
+_PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+#: kernel name -> (source file, C entry point, argtypes)
+KERNELS: "Dict[str, tuple]" = {
+    "flash_fwd": (
+        "flash_fwd.cu",
+        "tft_flash_fwd",
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P],
+    ),
+    "flash_bwd_kv": (
+        "flash_bwd_kv.cu",
+        "tft_flash_bwd_kv",
+        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P],
+    ),
+    "flash_bwd_q": (
+        "flash_bwd_q.cu",
+        "tft_flash_bwd_q",
+        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P],
+    ),
+}
+
+_lock = threading.Lock()
+_libs: "Dict[str, ctypes.CDLL]" = {}
+#: ptxas report (registers, shared memory, spills) of the last build
+build_log: "Dict[str, str]" = {}
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+        shutil.which("nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _lib_path(name: str, suffix: str = "") -> str:
+    return os.path.join(BUILD_DIR, f"libtft_{name}{suffix}.so")
+
+
+def _stale(name: str) -> bool:
+    out = _lib_path(name)
+    if not os.path.exists(out):
+        return True
+    built = os.path.getmtime(out)
+    return any(
+        os.path.getmtime(os.path.join(CSRC_DIR, f)) > built
+        for f in os.listdir(CSRC_DIR)
+        if f.endswith((".cu", ".cuh"))
+    )
+
+
+def build(names: "Optional[List[str]]" = None) -> float:
+    """Compile the named kernels (default: all) that are missing or older
+    than their sources, all ``nvcc`` processes at once.  Returns the wall
+    seconds spent; raises with the compiler output on any failure."""
+    names = list(KERNELS) if names is None else names
+    todo = [n for n in names if _stale(n)]
+    t0 = time.perf_counter()
+    if not todo:
+        return 0.0
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for name in todo:
+        src = os.path.join(CSRC_DIR, KERNELS[name][0])
+        cmd = [
+            nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+            "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+            "-o", _lib_path(name, ".tmp"), src,
+        ]
+        procs[name] = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )
+    failed = []
+    for name, proc in procs.items():
+        out, _ = proc.communicate()
+        build_log[name] = out
+        if proc.returncode != 0:
+            failed.append(f"{name}:\n{out}")
+        else:
+            os.replace(_lib_path(name, ".tmp"), _lib_path(name))
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def entry(name: str) -> "ctypes._CFuncPtr":
+    """The C entry point of kernel ``name``, building and loading its
+    library on first use."""
+    lib = _libs.get(name)
+    if lib is None:
+        with _lock:
+            lib = _libs.get(name)
+            if lib is None:
+                build([name])
+                lib = ctypes.CDLL(_lib_path(name))
+                fn = getattr(lib, KERNELS[name][1])
+                fn.argtypes = KERNELS[name][2]
+                fn.restype = ctypes.c_int
+                _libs[name] = lib
+    return getattr(lib, KERNELS[name][1])
+
+
+def check(name: str, rc: int) -> None:
+    """Raise if a launch returned a CUDA error code."""
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc} at launch")

@@ -1,0 +1,4 @@
+from torchft_tpu_torch.checkpointing.pg_transport import PGTransport
+from torchft_tpu_torch.checkpointing.transport import CheckpointTransport
+
+__all__ = ["CheckpointTransport", "PGTransport"]

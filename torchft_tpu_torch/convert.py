@@ -1,0 +1,72 @@
+"""Move transformer weights between the JAX package's pytree and the port.
+
+The JAX package keeps per-layer weights stacked on a leading ``[n_layers]``
+axis (``blocks.wq`` is ``[L, d_model, out]``, applied as ``h @ W``) and ties
+the output head to ``embed``.  The port keeps one :class:`Block` per layer
+with ``nn.Linear`` weights ``[out, in]``, so each matrix is transposed on
+the way in and out.  Both directions go through numpy.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+from torchft_tpu_torch.models.transformer import Transformer, TransformerConfig
+
+#: stacked JAX block leaves that are matrices (transposed to [out, in])
+_MATRICES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+_NORMS = ("attn_norm", "mlp_norm")
+
+
+def params_from_jax(
+    tree: "Mapping[str, Any]",
+    cfg: TransformerConfig,
+    device: "str | torch.device" = "cuda",
+) -> Transformer:
+    """A :class:`Transformer` holding the weights of the JAX pytree ``tree``
+    (numpy arrays, as ``jax.tree_util.tree_map(np.asarray, params)``)."""
+    model = Transformer(cfg, device)
+
+    def put(param: torch.Tensor, value: Any) -> None:
+        param.copy_(torch.from_numpy(np.array(value, dtype=np.float32)))
+
+    with torch.no_grad():
+        put(model.embed, tree["embed"])
+        put(model.final_norm, tree["final_norm"])
+        blocks = tree["blocks"]
+        for layer, block in enumerate(model.blocks):
+            for name in _NORMS:
+                put(getattr(block, name), blocks[name][layer])
+            for name in _MATRICES:
+                put(getattr(block, name).weight, np.asarray(blocks[name][layer]).T)
+    return model
+
+
+def params_to_jax(
+    named: "Mapping[str, torch.Tensor] | Transformer", cfg: TransformerConfig
+) -> "Dict[str, Any]":
+    """The JAX pytree layout (numpy f32) of the port's parameters — or of
+    anything keyed by their names, such as the gradients of a grad step."""
+    if isinstance(named, torch.nn.Module):
+        named = dict(named.named_parameters())
+
+    def get(name: str) -> np.ndarray:
+        return named[name].detach().float().cpu().numpy()
+
+    blocks: Dict[str, Any] = {}
+    for name in _NORMS:
+        blocks[name] = np.stack(
+            [get(f"blocks.{l}.{name}") for l in range(cfg.n_layers)]
+        )
+    for name in _MATRICES:
+        blocks[name] = np.stack(
+            [get(f"blocks.{l}.{name}.weight").T for l in range(cfg.n_layers)]
+        )
+    return {
+        "embed": get("embed"),
+        "blocks": blocks,
+        "final_norm": get("final_norm"),
+    }

@@ -1,0 +1,270 @@
+"""Flagship model: a llama-style decoder-only transformer.
+
+PyTorch port of ``torchft_tpu/models/transformer.py``: bf16 compute with
+f32 parameters, RMSNorm, rotary embeddings (half-split), GQA attention,
+SwiGLU FFN and a tied embedding/output head.  The JAX package stacks the
+layers' weights on a leading ``[n_layers]`` axis and scans over them; here
+each layer is a :class:`Block` module and the forward loops over them
+(``convert.py`` maps between the two layouts).  Attention runs through
+``attn_impl``: ``"flash"`` (the hand-written CUDA kernels), ``"dense"``, or
+``"auto"`` (flash on CUDA when ``T % 128 == 0``, else dense).
+
+Not ported yet: MoE, meshes and sharding, the pipeline, ring/Ulysses
+attention and ``remat_policy="dots"`` (which raises).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from torchft_tpu_torch.ops.flash_attention import flash_attention
+from torchft_tpu_torch.ops.ring_attention import dense_attention
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    vocab_size: int = 32000
+    d_model: int = 512
+    n_heads: int = 8
+    n_kv_heads: int = 4
+    d_ff: int = 1408
+    n_layers: int = 6
+    max_seq_len: int = 2048
+    rope_theta: float = 10000.0
+    dtype: torch.dtype = torch.bfloat16
+    param_dtype: torch.dtype = torch.float32
+    # remat=True recomputes each block in the backward
+    # (torch.utils.checkpoint, the JAX package's remat_policy="full");
+    # "dots" (save matmul outputs only) is not ported and raises.
+    remat: bool = True
+    remat_policy: str = "full"
+    attn_impl: str = "auto"
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_model // self.n_heads
+
+
+def resolve_device(device: "str | torch.device") -> torch.device:
+    """The device an entry point runs on; a CUDA request with no card
+    raises instead of quietly running on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on the CPU"
+        )
+    return dev
+
+
+# ---------------------------------------------------------------------------
+# forward pieces
+# ---------------------------------------------------------------------------
+
+
+def _rms_norm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + 1e-6)).to(x.dtype) * w.to(x.dtype)
+
+
+def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding, half-split; x [B, T, H, D], positions [T] (global)."""
+    d = x.shape[-1]
+    exponent = torch.arange(0, d, 2, dtype=torch.float32, device=x.device) / d
+    freqs = 1.0 / (theta**exponent)
+    angles = positions[:, None].float() * freqs[None, :]  # [T, D/2]
+    cos = torch.cos(angles)[None, :, None, :]
+    sin = torch.sin(angles)[None, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def _resolve_attn_impl(cfg: TransformerConfig, seq_len: int, device: torch.device) -> str:
+    if cfg.attn_impl != "auto":
+        return cfg.attn_impl
+    if device.type == "cuda" and seq_len % 128 == 0:
+        return "flash"
+    return "dense"
+
+
+class Block(nn.Module):
+    """One decoder layer: attention then SwiGLU FFN, both pre-norm with
+    residuals.  Weights are ``nn.Linear`` ``[out, in]`` in the param dtype
+    and run in the activation dtype."""
+
+    def __init__(self, cfg: TransformerConfig, device: torch.device) -> None:
+        super().__init__()
+        e, f = cfg.d_model, cfg.d_ff
+        hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+        kw = dict(bias=False, device=device, dtype=cfg.param_dtype)
+        self.cfg = cfg
+        self.attn_norm = nn.Parameter(torch.ones(e, device=device, dtype=cfg.param_dtype))
+        self.wq = nn.Linear(e, nh * hd, **kw)
+        self.wk = nn.Linear(e, nkv * hd, **kw)
+        self.wv = nn.Linear(e, nkv * hd, **kw)
+        self.wo = nn.Linear(nh * hd, e, **kw)
+        self.mlp_norm = nn.Parameter(torch.ones(e, device=device, dtype=cfg.param_dtype))
+        self.w_gate = nn.Linear(e, f, **kw)
+        self.w_up = nn.Linear(e, f, **kw)
+        self.w_down = nn.Linear(f, e, **kw)
+
+    def _attention(self, q, k, v) -> torch.Tensor:
+        impl = _resolve_attn_impl(self.cfg, q.shape[1], q.device)
+        if impl == "flash":
+            return flash_attention(q, k, v, causal=True)
+        if impl == "dense":
+            return dense_attention(q, k, v, causal=True)
+        raise ValueError(
+            f"unknown attn_impl {impl!r}; expected 'dense', 'flash' or 'auto' "
+            "(ring and ulysses are not ported yet)"
+        )
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        act = cfg.dtype
+        b, t, _ = x.shape
+        nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        h = _rms_norm(x, self.attn_norm)
+        q = F.linear(h, self.wq.weight.to(act)).reshape(b, t, nh, hd)
+        k = F.linear(h, self.wk.weight.to(act)).reshape(b, t, nkv, hd)
+        v = F.linear(h, self.wv.weight.to(act)).reshape(b, t, nkv, hd)
+        q = _rope(q, positions, cfg.rope_theta)
+        k = _rope(k, positions, cfg.rope_theta)
+        attn = self._attention(q, k, v).reshape(b, t, nh * hd)
+        x = x + F.linear(attn, self.wo.weight.to(act))
+        h = _rms_norm(x, self.mlp_norm)
+        gate = F.silu(F.linear(h, self.w_gate.weight.to(act)))
+        up = F.linear(h, self.w_up.weight.to(act))
+        return x + F.linear(gate * up, self.w_down.weight.to(act))
+
+
+class Transformer(nn.Module):
+    """tokens ``[B, T]`` -> logits ``[B, T, vocab]`` (f32).  Parameters are
+    created uninitialised; :func:`init_params` fills them."""
+
+    def __init__(
+        self, cfg: TransformerConfig, device: "str | torch.device" = "cuda"
+    ) -> None:
+        super().__init__()
+        dev = resolve_device(device)
+        self.cfg = cfg
+        self.embed = nn.Parameter(
+            torch.empty(cfg.vocab_size, cfg.d_model, device=dev, dtype=cfg.param_dtype)
+        )
+        self.blocks = nn.ModuleList(Block(cfg, dev) for _ in range(cfg.n_layers))
+        self.final_norm = nn.Parameter(
+            torch.ones(cfg.d_model, device=dev, dtype=cfg.param_dtype)
+        )
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        if cfg.remat and cfg.remat_policy != "full":
+            if cfg.remat_policy == "dots":
+                raise NotImplementedError(
+                    "remat_policy='dots' is not ported; use 'full' or remat=False"
+                )
+            raise ValueError(
+                f"unknown remat_policy {cfg.remat_policy!r}; expected 'full' or 'dots'"
+            )
+        b, t = tokens.shape
+        # _embed: a gather of the activation-dtype table (same values as
+        # casting the table first)
+        x = self.embed[tokens].to(cfg.dtype)
+        positions = torch.arange(t, device=tokens.device)
+        for block in self.blocks:
+            if cfg.remat and self.training:
+                x = checkpoint(block, x, positions, use_reentrant=False)
+            else:
+                x = block(x, positions)
+        return self._head(x)
+
+    def _head(self, x: torch.Tensor) -> torch.Tensor:
+        """Final norm + tied output head with f32 logits.
+
+        The JAX package multiplies in the activation dtype with f32
+        accumulation (``preferred_element_type=float32``).  A bf16
+        ``torch.matmul`` would round the logits to bf16, so both operands
+        are rounded to the activation dtype and then multiplied in f32: a
+        product of two bf16 values is exact in f32, so this is the same
+        bf16-input, f32-accumulate product (TF32 must stay off, as it is by
+        default)."""
+        act = self.cfg.dtype
+        x = _rms_norm(x, self.final_norm)
+        return torch.matmul(x.to(act).float(), self.embed.to(act).float().t())
+
+
+def init_params(
+    generator: torch.Generator,
+    cfg: TransformerConfig,
+    device: "str | torch.device" = "cuda",
+) -> Transformer:
+    """A :class:`Transformer` initialised as the JAX package initialises its
+    pytree: projections ~ N(0, 1/fan_in), the embedding ~ N(0, 0.02^2),
+    norms at 1.  Values are drawn on the CPU from ``generator`` (a CPU
+    generator), so a seed gives the same weights on every device."""
+    model = Transformer(cfg, device)
+    with torch.no_grad():
+        model.embed.copy_(
+            torch.randn(model.embed.shape, generator=generator) * 0.02
+        )
+        for block in model.blocks:
+            for lin in (
+                block.wq, block.wk, block.wv, block.wo,
+                block.w_gate, block.w_up, block.w_down,
+            ):
+                fan_in = lin.weight.shape[1]
+                lin.weight.copy_(
+                    torch.randn(lin.weight.shape, generator=generator)
+                    / fan_in**0.5
+                )
+    return model
+
+
+def loss_fn(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
+    """Next-token cross-entropy, mean over all positions but the last."""
+    logits = model(tokens)[:, :-1]
+    targets = tokens[:, 1:]
+    # fused NLL: logsumexp(logits) - logit[target] == -log_softmax[target]
+    # without materializing the [B, T, V] log-probability tensor
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, targets[..., None])[..., 0]
+    return (lse - picked).mean()
+
+
+def make_grad_step(
+    cfg: TransformerConfig,
+) -> "Callable[[Transformer, torch.Tensor], Tuple[torch.Tensor, Dict[str, torch.Tensor]]]":
+    """A ``(model, tokens) -> (loss, grads)`` step — the FT-DDP shape:
+    ``Manager.allreduce`` averages the grads across replica groups, then the
+    optimizer steps.  ``grads`` maps parameter names to gradients."""
+
+    def step(
+        model: Transformer, tokens: torch.Tensor
+    ) -> "Tuple[torch.Tensor, Dict[str, torch.Tensor]]":
+        model.zero_grad(set_to_none=True)
+        loss = loss_fn(model, tokens)
+        loss.backward()
+        grads = {
+            n: p.grad for n, p in model.named_parameters() if p.grad is not None
+        }
+        return loss.detach(), grads
+
+    return step
+
+
+__all__ = [
+    "Block",
+    "Transformer",
+    "TransformerConfig",
+    "init_params",
+    "loss_fn",
+    "make_grad_step",
+    "resolve_device",
+]
