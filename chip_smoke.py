@@ -26,12 +26,32 @@ Phases, any failure exits non-zero:
    PGTransport and both train two more steps.  Every survivor step must
    commit, losses must be finite, the two groups must end bitwise equal,
    and every kernel must have launched (its twin never).
+4. Quantization kernels: D (row absmax + int8 quantize), E (dequantize)
+   and F (dequantize n shards, sum, average, requantize) through their
+   public entry points, at the flagship DiLoCo fragment shapes ((25 348,
+   2048) and (49 348, 2048) f32) and on edge rows (all-zero rows, exact .5
+   ties, a subnormal row, unaligned widths), against their plain twins on
+   the card, bit for bit; timed beside their twins and their bounds.
+5. DiLoCo path: the same flagship in two replica groups as threads, inner
+   AdamW steps and Streaming DiLoCo over 8 fragments (two blocks each;
+   the embedding joins the first, the final norm the last) with int8
+   outer syncs quantized on the card by kernel D (``sync_every=16``,
+   ``fragment_sync_delay=1``, outer SGD lr 0.7, momentum 0.9, Nesterov).
+   Group 1 shuts down after outer step 3, restarts from a fresh init,
+   heals over PGTransport (model, AdamW state, every fragment's backup and
+   outer state) and runs to the end; the survivor runs 24 inner steps (12
+   syncs).  Every survivor sync must commit, the synced fragment must be
+   bitwise equal across the groups after each sync, every fragment's
+   backup and outer state at the end, each sync's wire bytes below a
+   3.5th of the f32 bytes, and D, A, B and C must have launched (D's twin
+   never).
 
 The last two lines are the kernels' JSON record and the device JSON.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -44,6 +64,7 @@ import traceback
 from concurrent.futures import ThreadPoolExecutor
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
+PEAK_F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 
 
@@ -88,8 +109,10 @@ def live_pairs(tq: int, tk: int, causal: bool, q_off: int = 0, k_off: int = 0) -
     )
 
 
-def bound(ops: float, nbytes: float) -> "tuple[float, str]":
-    t_ops, t_bytes = ops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+def bound(
+    ops: float, nbytes: float, peak_ops: float = PEAK_BF16_FLOPS
+) -> "tuple[float, str]":
+    t_ops, t_bytes = ops / peak_ops, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -425,6 +448,424 @@ def main_path(cfg=None, batch: int = 8, seq: int = 1024, device: str = "cuda") -
     return summary
 
 
+# ---------------------------------------------------------------------------
+# phase 4: quantization kernels against their twins
+# ---------------------------------------------------------------------------
+
+# the flagship DiLoCo fragments as (rows, 2048) f32 matrices: two blocks,
+# and two blocks with the embedding
+FRAGMENT_ROWS = (25348, 49348)
+QUANT_COLS = 2048
+
+
+def _bits_equal(a, b) -> bool:
+    import torch
+
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return bool(torch.equal(a, b))
+
+
+def _max_abs(a, b) -> float:
+    return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+
+
+def check_quant_kernels() -> "dict":
+    """Kernels D, E and F through their public entry points, held to their
+    twins on the card bit for bit.  F may also pass at one code and scales
+    to rtol 1e-6 (a different sum order would give that), and says so; by
+    construction it is bitwise (both sides round each product and sum on
+    its own, shards in index order)."""
+    import torch
+
+    from torchft_tpu_torch.ops import pallas_quant as pq
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+
+    def rand(rows, cols, scale=1.0):
+        return torch.randn(rows, cols, device=dev, generator=g) * scale
+
+    # edge rows: an all-zero row, exact .5 ties (absmax 127 -> scale 1), a
+    # subnormal row (scale below 2^-126: kept, not flushed), a wide row
+    edge = rand(8, QUANT_COLS, 3.0)
+    edge[1] = 0.0
+    edge[2] = 0.0
+    edge[2, :8] = torch.tensor(
+        [127.0, 0.5, 1.5, 2.5, -0.5, -2.5, 3.5, -127.0], device=dev
+    )
+    edge[3] = rand(1, QUANT_COLS)[0] * 1e-38
+    edge[4] = edge[4] * 1e30
+    cases = {
+        "fragment": rand(FRAGMENT_ROWS[0], QUANT_COLS, 1e-3),
+        "largest": rand(FRAGMENT_ROWS[1], QUANT_COLS, 1e-3),
+        "edge": edge,
+        # unaligned rows: the scalar paths of the kernels
+        "33x7": rand(33, 7), "5x130": rand(5, 130), "3x2051": rand(3, 2051),
+    }
+    err = {"quant_int8": 0.0, "dequant_int8": 0.0, "reduce_int8": 0.0}
+    quantized = {}
+    for name, x in cases.items():
+        s, p = pq.fused_quantize_into_int8(x)
+        s0, p0 = pq.quantize_int8_plain(x)
+        assert _bits_equal(s, s0) and _bits_equal(p, p0), f"D differs on {name}"
+        out = pq.fused_dequantize_from_int8(s, p)
+        out0 = pq.dequantize_int8_plain(s, p)
+        assert _bits_equal(out, out0), f"E differs on {name}"
+        err["quant_int8"] = max(err["quant_int8"], _max_abs(s, s0), _max_abs(p, p0))
+        err["dequant_int8"] = max(err["dequant_int8"], _max_abs(out, out0))
+        quantized[name] = (s, p)
+    s, p = quantized["edge"]
+    assert float(s[1]) == 1.0 and not bool(p[1].any())
+    assert p[2, :8].tolist() == [127, 0, 2, 2, 0, -2, 4, -127], p[2, :8].tolist()
+    assert 0.0 < float(s[3]) < 1.1754944e-38, float(s[3])  # subnormal, kept
+    log("kernel check D, E: bitwise equal to the twins at "
+        + ", ".join(f"{n} {tuple(x.shape)}" for n, x in cases.items())
+        + "; edge rows: zero row scale 1, ties half-even, subnormal scale "
+        f"{float(s[3]):.3e} kept")
+
+    def shards(name, n):
+        xs = [cases[name]] + [
+            rand(*cases[name].shape, scale=float(cases[name].abs().max()))
+            for _ in range(n - 1)
+        ]
+        qs = [pq.fused_quantize_into_int8(x) for x in xs]
+        return torch.stack([q[0] for q in qs]), torch.stack([q[1] for q in qs])
+
+    f_bitwise = True
+    stacked = {}
+    for name, n in (("fragment", 2), ("largest", 2), ("edge", 3), ("33x7", 3),
+                    ("3x2051", 2)):
+        S, P = shards(name, n)
+        stacked[name] = (S, P)
+        for avg in (0, n):
+            rs, rp = pq.fused_reduce_int8(S, P, avg)
+            ts, tp = pq.reduce_int8_plain(S, P, 1.0 / avg if avg else 1.0)
+            codes = _max_abs(rp, tp)
+            err["reduce_int8"] = max(err["reduce_int8"], _max_abs(rs, ts), codes)
+            if not (_bits_equal(rs, ts) and _bits_equal(rp, tp)):
+                f_bitwise = False
+                assert codes <= 1.0, f"F differs by {codes} codes on {name}"
+                torch.testing.assert_close(rs, ts, rtol=1e-6, atol=0)
+    log("kernel check F: " + (
+        "bitwise equal to the twin (shards summed in index order)"
+        if f_bitwise else
+        "within one code and scales rtol 1e-6 of the twin, NOT bitwise"
+    ) + " at fragment, largest, edge, 33x7, 3x2051 with average_by 0 and n")
+    torch.cuda.synchronize()
+
+    # timings at the flagship fragment; L2 (50 MB) is smaller than any
+    # input here, so every launch reads device memory cold
+    x = cases["fragment"]
+    s, p = quantized["fragment"]
+    S, P = stacked["fragment"]
+    times = {
+        "quant_int8": (
+            cuda_ms(lambda: pq.quantize_int8(x), 20),
+            cuda_ms(lambda: pq.quantize_int8_plain(x), 5, 1),
+        ),
+        "dequant_int8": (
+            cuda_ms(lambda: pq.dequantize_int8(s, p), 20),
+            cuda_ms(lambda: pq.dequantize_int8_plain(s, p), 5, 1),
+        ),
+        "reduce_int8": (
+            cuda_ms(lambda: pq.reduce_int8(S, P, 2), 20),
+            cuda_ms(lambda: pq.reduce_int8_plain(S, P, 0.5), 5, 1),
+        ),
+    }
+    largest = cases["largest"]
+    d_largest = cuda_ms(lambda: pq.quantize_int8(largest), 20)
+    r, c = x.shape
+    n = P.shape[0]
+    el = r * c
+    # bytes: each input read once, each output written once; operations:
+    # f32 (CUDA cores) per element — D: abs, max, divide, rint, two clamps,
+    # convert; E: convert, multiply; F: n (convert, multiply), n - 1 adds,
+    # the average's multiply, then D's six
+    bounds = {
+        "quant_int8": bound(7 * el, 4 * el + el + 4 * r, PEAK_F32_FLOPS),
+        "dequant_int8": bound(2 * el, el + 4 * r + 4 * el, PEAK_F32_FLOPS),
+        "reduce_int8": bound(
+            (3 * n + 7) * el, n * el + 4 * n * r + el + 4 * r, PEAK_F32_FLOPS
+        ),
+    }
+    for name, (ms, plain_ms) in times.items():
+        log(f"  {name}: {ms:.4f} ms (plain twin {plain_ms:.4f} ms, bound "
+            f"{bounds[name][0]:.4f} ms by {bounds[name][1]}, library None) "
+            f"at ({r}, {c})" + (f", n={n}" if name == "reduce_int8" else ""))
+    rl = largest.shape[0]
+    bound_largest = (5 * rl * c + 4 * rl) / PEAK_BYTES * 1e3
+    log(f"  quant_int8 at the largest fragment {tuple(largest.shape)}: "
+        f"{d_largest:.4f} ms (bound {bound_largest:.4f} ms by bytes)")
+    return {
+        "max_abs": err, "times": times, "bounds": bounds,
+        "library": {k: None for k in times}, "f_bitwise": f_bitwise,
+    }
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the DiLoCo path
+# ---------------------------------------------------------------------------
+
+
+def fragment_keys(n_layers: int, n_fragments: int) -> "list":
+    """Consecutive blocks per fragment; the embedding joins the first
+    fragment and the final norm the last."""
+    if n_layers % n_fragments:
+        raise ValueError(f"{n_layers} layers do not split into {n_fragments}")
+    per = n_layers // n_fragments
+    block = ("attn_norm", "mlp_norm", "wq.weight", "wk.weight", "wv.weight",
+             "wo.weight", "w_gate.weight", "w_up.weight", "w_down.weight")
+    frags = [
+        [f"blocks.{i}.{b}" for i in range(f * per, (f + 1) * per) for b in block]
+        for f in range(n_fragments)
+    ]
+    frags[0].insert(0, "embed")
+    frags[-1].append("final_norm")
+    return frags
+
+
+class _SyncLedger:
+    """Cross-group check of each committed sync: the first group to finish
+    sync ``step`` leaves a host copy of the synced fragment; the second
+    compares its own with it, tensor by tensor, bit for bit."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._held: "dict" = {}
+        self.compared: "list" = []
+        self.mismatched: "list" = []
+
+    def put(self, step: int, gid: int, tensors: "dict") -> None:
+        import torch
+
+        with self._lock:
+            other = self._held.pop(step, None)
+            if other is None:
+                self._held[step] = (gid, tensors)
+                return
+        ogid, otensors = other
+        bad = [n for n, t in tensors.items() if not torch.equal(t, otensors[n])]
+        with self._lock:
+            self.compared.append(step)
+            if bad:
+                self.mismatched.append((step, bad[:3]))
+
+
+def diloco_path(
+    cfg=None, batch: int = 8, seq: int = 1024, device: str = "cuda",
+    n_fragments: int = 8, sync_every: int = 16, total_syncs: int = 12,
+    kill_at: int = 3, device_quantize=None,
+) -> "dict":
+    """Phase 5 at the flagship config; the arguments let a CPU rehearsal
+    drive the same code at a tiny size (``device_quantize=True`` there
+    takes the device capture through kernel D's plain twin)."""
+    import torch
+
+    from torchft_tpu_torch import Manager, PGTransport, ProcessGroupTCP
+    from torchft_tpu_torch.coordination import LighthouseServer
+    from torchft_tpu_torch.local_sgd import DiLoCo, OuterSGD
+    from torchft_tpu_torch.models import transformer as tf
+
+    if cfg is None:
+        cfg = tf.TransformerConfig(
+            vocab_size=32000, d_model=1536, n_heads=6, n_kv_heads=3, d_ff=4096,
+            n_layers=16, max_seq_len=1024, dtype=torch.bfloat16,
+            param_dtype=torch.float32, remat=False, attn_impl="flash",
+        )
+    on_card = device == "cuda"
+    fragments = fragment_keys(cfg.n_layers, n_fragments)
+    inner_per_sync = sync_every // n_fragments
+
+    def sync() -> None:
+        if on_card:
+            torch.cuda.synchronize()
+
+    grad_step = tf.make_grad_step(cfg)
+    compute = threading.Lock()  # the groups' inner steps take turns
+    ledger = _SyncLedger()
+
+    def group(gid: int, seed: int, stop_at: int) -> dict:
+        model = tf.init_params(torch.Generator().manual_seed(seed), cfg, device)
+        opt = torch.optim.AdamW(
+            model.parameters(), lr=3e-4, betas=(0.9, 0.95), eps=1e-8,
+            weight_decay=0.1,
+        )
+        live = dict(model.named_parameters())
+        n_elems = sum(p.numel() for p in live.values())
+        frag_elems = [sum(live[k].numel() for k in f) for f in fragments]
+
+        def get_params():
+            return dict(live)
+
+        def set_params(new):
+            with torch.no_grad():
+                for n, v in new.items():
+                    if v is not live[n]:
+                        live[n].copy_(v)
+
+        def state_dict():
+            return {"model": model.state_dict(), "optim": opt.state_dict()}
+
+        def load_state_dict(sd):
+            model.load_state_dict(sd["model"])
+            opt.load_state_dict(sd["optim"])
+
+        pg = ProcessGroupTCP(timeout=600.0)
+        holder = {}
+        manager = Manager(
+            pg=pg, min_replica_size=1,
+            load_state_dict=load_state_dict, state_dict=state_dict,
+            lighthouse_addr=lighthouse.address(), replica_id=f"diloco{gid}",
+            group_rank=0, group_world_size=1,
+            checkpoint_transport=PGTransport(
+                pg, timeout=600.0,
+                state_dict_fn=lambda: holder["m"]._manager_state_dict(),
+            ),
+            # both groups start from the same weights; a restarted group
+            # still heals, since its step is behind
+            use_async_quorum=False, init_sync=False,
+            timeout=600.0, quorum_timeout=600.0,
+        )
+        holder["m"] = manager
+        diloco = DiLoCo(
+            manager, fragments, get_params, set_params,
+            OuterSGD(0.7, momentum=0.9, nesterov=True), sync_every=sync_every,
+            should_quantize=True, fragment_sync_delay=1,
+            device_quantize=device_quantize,
+        )
+        inner, syncs = [], []
+        n = 0
+        try:
+            while manager.current_step() < stop_at:
+                tokens = torch.randint(
+                    0, cfg.vocab_size, (batch, seq),
+                    generator=torch.Generator().manual_seed(
+                        1_000_003 * gid + 7919 * seed + n),
+                ).to(device)
+                with compute:
+                    t0 = time.perf_counter()  # the card to this group alone
+                    loss, _ = grad_step(model, tokens)
+                    opt.step()
+                    sync()
+                    t1 = time.perf_counter()
+                before = diloco.last_sync
+                diloco.step()
+                sync()
+                t2 = time.perf_counter()
+                n += 1
+                inner.append({"loss": float(loss), "compute_ms": (t1 - t0) * 1e3,
+                              "diloco_ms": (t2 - t1) * 1e3})
+                last = diloco.last_sync
+                if last is not None and last is not before:
+                    qs = last["quant_stats"]
+                    rec = {
+                        "group": gid, "step": manager.current_step(),
+                        "fragment": last["fragment"],
+                        "committed": last["committed"],
+                        "wall_ms": (t2 - t1) * 1e3,
+                        "wire_bytes": last["wire_bytes"],
+                        "unquantized_wire_bytes": last["unquantized_wire_bytes"],
+                        "device_quantized": last["device_quantized"],
+                        "codec_s": qs.get("codec_s"), "wire_s": qs.get("wire_s"),
+                        "pipeline_wall_s": qs.get("wall_s"),
+                        "overlap_efficiency": qs.get("overlap_efficiency"),
+                        "n_chunks": qs.get("n_chunks"),
+                        "elems": frag_elems[last["fragment"]],
+                        # device memory now and the phase's peak so far
+                        "mem_gb": torch.cuda.memory_allocated() / 1e9 if on_card else None,
+                        "peak_gb": torch.cuda.max_memory_allocated() / 1e9 if on_card else None,
+                    }
+                    syncs.append(rec)
+                    log(f"  diloco sync {json.dumps(rec)}")
+                    if last["committed"]:
+                        ledger.put(rec["step"], gid, {
+                            k: live[k].detach().to("cpu", copy=True)
+                            for k in fragments[last["fragment"]]
+                        })
+            user = manager._manager_state_dict()["user"]
+            frag_state = {
+                i: user[f"StreamingDiLoCoFragment_{i}"]
+                for i in range(n_fragments)
+            } if stop_at == total_syncs else None
+            return {
+                "inner": inner, "syncs": syncs, "phases": manager.phase_times(),
+                "final_step": manager.current_step(), "frag_state": frag_state,
+                "n_elems": n_elems,
+            }
+        finally:
+            manager.shutdown()
+
+    lighthouse = LighthouseServer(
+        min_replicas=2, join_timeout_ms=100, heartbeat_timeout_ms=5000
+    )
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t_start = time.perf_counter()
+    ex = ThreadPoolExecutor(max_workers=3)
+    try:
+        survivor_f = ex.submit(group, 0, 0, total_syncs)
+        first = ex.submit(group, 1, 0, kill_at).result(timeout=1800)
+        log(f"diloco group1 shut down after outer step {first['final_step']}; "
+            "restarting it from a fresh init")
+        # the dead group's model and optimizer hang in reference cycles
+        # (manager <-> transport <-> state closures): free them first
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+            log(f"  device memory after group1 shut down: "
+                f"{torch.cuda.memory_allocated() / 1e9:.2f} GB (peak so far "
+                f"{torch.cuda.max_memory_allocated() / 1e9:.2f})")
+        rejoiner = ex.submit(group, 1, 12345, total_syncs).result(timeout=1800)
+        survivor = survivor_f.result(timeout=1800)
+    finally:
+        ex.shutdown(wait=False)
+        lighthouse.shutdown()
+    wall = time.perf_counter() - t_start
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+
+    losses = [s["loss"] for r in (survivor, first, rejoiner) for s in r["inner"]]
+    assert all(math.isfinite(x) for x in losses), losses
+    assert first["final_step"] == kill_at
+    assert survivor["final_step"] == rejoiner["final_step"] == total_syncs
+    # every survivor sync committed: a failed one would not advance the
+    # step and would cost another cycle of inner steps
+    assert len(survivor["syncs"]) == total_syncs, len(survivor["syncs"])
+    assert all(s["committed"] for s in survivor["syncs"]), "survivor sync failed"
+    assert len(survivor["inner"]) == total_syncs * inner_per_sync
+    assert rejoiner["phases"].get("heal_recv", 0.0) > 0.0, "rejoiner did not heal"
+    for s in survivor["syncs"] + first["syncs"] + rejoiner["syncs"]:
+        assert s["wire_bytes"] < s["unquantized_wire_bytes"] / 3.5, s
+        assert s["device_quantized"] == (
+            on_card if device_quantize is None else device_quantize), s
+    assert sorted(ledger.compared) == list(range(1, total_syncs + 1)), ledger.compared
+    assert not ledger.mismatched, f"synced fragments differ: {ledger.mismatched}"
+    for i in range(n_fragments):
+        a, b = survivor["frag_state"][i], rejoiner["frag_state"][i]
+        for part in ("original_parameters",):
+            for k, t in a[part].items():
+                assert torch.equal(t, b[part][k]), (i, part, k)
+        for k, t in a["outer_optimizer"]["trace"].items():
+            assert torch.equal(t, b["outer_optimizer"]["trace"][k]), (i, "trace", k)
+    log(f"diloco path: {total_syncs} survivor syncs all committed; the "
+        f"rejoiner healed; each synced fragment was bitwise equal across the "
+        f"groups ({len(ledger.compared)} syncs), and all {n_fragments} "
+        "fragments' backups and outer states are bitwise equal at the end")
+    inner_ms = [s["compute_ms"] for s in survivor["inner"]]
+    return {
+        "median_inner_step_ms": statistics.median(inner_ms),
+        "syncs": survivor["syncs"],
+        "rejoiner_syncs": rejoiner["syncs"],
+        "survivor_phases_ms": {k: v * 1e3 for k, v in survivor["phases"].items()},
+        "rejoiner_phases_ms": {k: v * 1e3 for k, v in rejoiner["phases"].items()},
+        "heal_recv_ms": rejoiner["phases"].get("heal_recv", 0.0) * 1e3,
+        "peak_memory_gb": peak_gb,
+        "wall_s": wall,
+        "n_elems": survivor["n_elems"],
+        "losses": losses,
+    }
+
+
 def main() -> int:
     try:
         import torch
@@ -437,6 +878,7 @@ def main() -> int:
     try:
         from torchft_tpu_torch import _kernels
         from torchft_tpu_torch.ops import flash_attention as fa
+        from torchft_tpu_torch.ops import pallas_quant as pq
     except ImportError as e:
         print(f"chip_smoke: the port is not importable ({e}); run from the "
               "root of a checkout", file=sys.stderr)
@@ -454,21 +896,57 @@ def main() -> int:
                 log(f"  ptxas {name}: {line.strip()}")
 
     kernels = check_kernels()
+    quant = check_quant_kernels()
     torch.cuda.empty_cache()
 
-    counters = (fa.flash_fwd, fa.flash_bwd_kv, fa.flash_bwd_q)
-    twins = (fa.flash_fwd_plain, fa.flash_bwd_kv_plain, fa.flash_bwd_q_plain)
-    for fn in counters:
-        fn.launches = 0
-    for fn in twins:
-        fn.calls = 0
-    summary = main_path()
-    launches = {fn.__name__: fn.launches for fn in counters}
-    twin_calls = {fn.__name__: fn.calls for fn in twins}
+    # wrapper name -> kernel name (csrc/, _kernels.KERNELS)
+    counters = {
+        fa.flash_fwd: "flash_fwd", fa.flash_bwd_kv: "flash_bwd_kv",
+        fa.flash_bwd_q: "flash_bwd_q", pq.quantize_int8: "quant_int8",
+        pq.dequantize_int8: "dequant_int8", pq.reduce_int8: "reduce_int8",
+    }
+    twins = (fa.flash_fwd_plain, fa.flash_bwd_kv_plain, fa.flash_bwd_q_plain,
+             pq.quantize_int8_plain, pq.dequantize_int8_plain,
+             pq.reduce_int8_plain)
+
+    def drive(path) -> "tuple":
+        """Run one main path with every count at 0; its launches and twin
+        calls, read just after."""
+        for fn in counters:
+            fn.launches = 0
+        for fn in twins:
+            fn.calls = 0
+        summary = path()
+        return (summary, {name: fn.launches for fn, name in counters.items()},
+                {fn.__name__: fn.calls for fn in twins})
+
+    summary, launches, twin_calls = drive(main_path)
     log(f"main path launches {launches}, plain twin calls {twin_calls}")
-    assert all(n > 0 for n in launches.values()), launches
+    assert all(launches[k] > 0 for k in ("flash_fwd", "flash_bwd_kv", "flash_bwd_q")), launches
     assert all(n == 0 for n in twin_calls.values()), twin_calls
     log(f"main path on {card}: " + json.dumps(summary))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    dsum, d_launches, d_twin_calls = drive(diloco_path)
+    log(f"diloco path launches {d_launches}, plain twin calls {d_twin_calls}")
+    assert all(
+        d_launches[k] > 0
+        for k in ("flash_fwd", "flash_bwd_kv", "flash_bwd_q", "quant_int8")
+    ), d_launches
+    assert all(n == 0 for n in d_twin_calls.values()), d_twin_calls
+    log(f"{card} | diloco median inner step {dsum['median_inner_step_ms']:.1f} ms "
+        f"(forward, backward and AdamW of one group, B=8 T=1024)")
+    for s_ in dsum["syncs"]:
+        log(f"{card} | diloco sync step {s_['step']} fragment {s_['fragment']} "
+            f"({s_['elems']} elements): wall {s_['wall_ms']:.1f} ms, codec_s "
+            f"{s_['codec_s']:.4f}, wire_s {s_['wire_s']:.4f}, overlap_efficiency "
+            f"{s_['overlap_efficiency']:.3f}, n_chunks {s_['n_chunks']}, "
+            f"wire_bytes {s_['wire_bytes']} (f32 {s_['unquantized_wire_bytes']}), "
+            f"device memory {s_['mem_gb']:.2f} GB (peak so far {s_['peak_gb']:.2f})")
+    log(f"{card} | diloco heal_recv {dsum['heal_recv_ms']:.1f} ms, peak memory "
+        f"{dsum['peak_memory_gb']} GB, phase wall {dsum['wall_s']:.1f} s")
+    log(f"diloco path on {card}: " + json.dumps(dsum))
 
     sources = {
         "flash_fwd": ("torchft_tpu_torch/csrc/flash_fwd.cu",
@@ -477,17 +955,28 @@ def main() -> int:
                          "torchft_tpu/ops/flash_attention.py:208"),
         "flash_bwd_q": ("torchft_tpu_torch/csrc/flash_bwd_q.cu",
                         "torchft_tpu/ops/flash_attention.py:254"),
+        "quant_int8": ("torchft_tpu_torch/csrc/quant_int8.cu",
+                       "torchft_tpu/ops/pallas_quant.py:64"),
+        "dequant_int8": ("torchft_tpu_torch/csrc/dequant_int8.cu",
+                         "torchft_tpu/ops/pallas_quant.py:78"),
+        "reduce_int8": ("torchft_tpu_torch/csrc/reduce_int8.cu",
+                        "torchft_tpu/ops/pallas_quant.py:83"),
     }
+    checks = {}
+    for part in ("max_abs", "times", "bounds", "library"):
+        checks[part] = {**kernels[part], **quant[part]}
+    # launches: the DDP path's and the DiLoCo path's runs together (each
+    # counted from 0); E and F have no caller on either path
     record = {"kernels": [
         {
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": launches[name],
-            "max_abs_err": kernels["max_abs"][name],
-            "ms": kernels["times"][name][0],
-            "plain_ms": kernels["times"][name][1],
-            "bound_ms": kernels["bounds"][name][0],
-            "bound_by": kernels["bounds"][name][1],
-            "library_ms": kernels["library"][name],
+            "launches": launches[name] + d_launches[name],
+            "max_abs_err": checks["max_abs"][name],
+            "ms": checks["times"][name][0],
+            "plain_ms": checks["times"][name][1],
+            "bound_ms": checks["bounds"][name][0],
+            "bound_by": checks["bounds"][name][1],
+            "library_ms": checks["library"][name],
         }
         for name, (src, rep) in sources.items()
     ]}

@@ -12,6 +12,7 @@ import torch
 import chip_smoke
 from torchft_tpu_torch.models import transformer as tf
 from torchft_tpu_torch.ops import flash_attention as fa
+from torchft_tpu_torch.ops import pallas_quant as pq
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -30,6 +31,30 @@ def test_main_path_rehearsal_on_cpu():
     assert all(x == x for x in summary["losses"])
     # on CPU tensors the wrappers take the twins: 10 group-steps x 1 layer
     assert fa.flash_fwd_plain.calls - before == 10
+
+
+def test_diloco_path_rehearsal_on_cpu():
+    """The DiLoCo phase at a tiny f32 size: 2 layers in 2 fragments (one
+    block each, big enough that int8 beats f32 on the wire by the phase's
+    3.5x), sync_every=4, a kill after outer step 2 and a rejoin.  The
+    path asserts the heal, each synced fragment and every fragment's
+    backup and outer state bitwise equal across the groups; the device
+    capture runs kernel D's twin here."""
+    cfg = tf.TransformerConfig(
+        vocab_size=256, d_model=64, n_heads=2, n_kv_heads=1, d_ff=128,
+        n_layers=2, max_seq_len=128, dtype=torch.float32, remat=False,
+        attn_impl="flash",
+    )
+    calls = pq.quantize_int8_plain.calls
+    summary = chip_smoke.diloco_path(
+        cfg, batch=1, seq=128, device="cpu", n_fragments=2, sync_every=4,
+        total_syncs=4, kill_at=2, device_quantize=True,
+    )
+    assert summary["heal_recv_ms"] > 0
+    assert [s["fragment"] for s in summary["syncs"]] == [0, 1, 0, 1]
+    # 4 survivor syncs + 2 of the first group1 + 2 of the rejoiner
+    assert pq.quantize_int8_plain.calls - calls == 8
+    assert all(x == x for x in summary["losses"])
 
 
 def _run(args, cwd, env):

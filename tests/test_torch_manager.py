@@ -268,18 +268,45 @@ def test_flatten_order_matches_jax():
     assert tree_unflatten(skeleton, leaves) == tree
 
 
-def test_bf16_leaves_raise_and_quantized_is_next_slice(tree):
-    lh = LighthouseServer(min_replicas=1)
-    model = convert.params_from_jax(tree, TCFG, device="cpu")
-    manager, _, _ = _port_group(0, lh.address(), model, 1)
+def test_shut_down_manager_frees_the_training_state():
+    """An idle process-group worker must not pin its last op: that op's
+    future reaches, through its callbacks, the Manager and every tensor
+    its state closures hold.  After shutdown, one cyclic collection frees
+    them (on the card, a restarted group's gigabytes)."""
+    import gc
+    import weakref
+
+    lh = LighthouseServer(min_replicas=1, join_timeout_ms=100)
+
+    def run():
+        state = torch.zeros(1000)
+        pg = ProcessGroupTCP(timeout=10.0)
+        box = {}
+        m = Manager(
+            pg=pg, min_replica_size=1, load_state_dict=lambda sd: None,
+            state_dict=lambda: {"t": state}, lighthouse_addr=lh.address(),
+            replica_id="frees", group_rank=0, group_world_size=1,
+            checkpoint_transport=PGTransport(
+                pg, timeout=10.0,
+                state_dict_fn=lambda: box["m"]._manager_state_dict(),
+            ),
+            use_async_quorum=False, timeout=10.0, quorum_timeout=10.0,
+        )
+        box["m"] = m
+        try:
+            m.start_quorum()
+            m.allreduce({"g": torch.ones(10)}, should_quantize=True).wait(10)
+            m.allreduce({"g": torch.ones(10)}).wait(10)
+            assert m.should_commit()
+        finally:
+            m.shutdown()
+        return weakref.ref(state), weakref.ref(m)
+
     try:
-        manager.start_quorum()
-        with pytest.raises(TypeError, match="bfloat16"):
-            manager.allreduce({"g": torch.zeros(4, dtype=torch.bfloat16)})
-        with pytest.raises(NotImplementedError, match="quantized"):
-            manager.allreduce({"g": torch.zeros(4)}, should_quantize=True)
+        state_ref, manager_ref = run()
+        gc.collect()
+        assert manager_ref() is None and state_ref() is None
     finally:
-        manager.shutdown()
         lh.shutdown()
 
 

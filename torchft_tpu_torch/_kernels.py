@@ -29,6 +29,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_int64
 _F = ctypes.c_float
 
 #: kernel name -> (source file, C entry point, argtypes)
@@ -47,6 +48,15 @@ KERNELS: "Dict[str, tuple]" = {
         "flash_bwd_q.cu",
         "tft_flash_bwd_q",
         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P],
+    ),
+    "quant_int8": ("quant_int8.cu", "tft_quant_int8", [_P, _P, _P, _L, _L, _P]),
+    "dequant_int8": (
+        "dequant_int8.cu", "tft_dequant_int8", [_P, _P, _P, _L, _L, _P],
+    ),
+    "reduce_int8": (
+        "reduce_int8.cu",
+        "tft_reduce_int8",
+        [_P, _P, _P, _P, _I, _L, _L, _F, _P],
     ),
 }
 

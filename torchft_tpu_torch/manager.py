@@ -16,8 +16,8 @@ What differs from the JAX package:
 - the checkpoint transport must be passed in: the HTTP heal plane is not
   ported yet (pass ``PGTransport`` over this Manager's process group);
 - not ported yet, and therefore absent: the durable fragment store spill and
-  cold restore, ``attach_layout``, ``attach_weight_publisher``, striped heal
-  and the quantized allreduce (``should_quantize=True`` raises).
+  cold restore, ``attach_layout``, ``attach_weight_publisher`` and striped
+  heal.
 
 Env knobs (parity with reference manager.py:76-89):
 ``TORCHFT_LIGHTHOUSE`` (a single ``host:port`` or the coordination-plane
@@ -59,7 +59,6 @@ from torchft_tpu_torch.parallel.process_group import (
     ProcessGroup,
     REDUCE_AVG,
     REDUCE_SUM,
-    _np_dtype,
 )
 from torchft_tpu_torch.parallel.work import Work, completed_work
 from torchft_tpu_torch.utils import faults as faults
@@ -125,6 +124,16 @@ def _is_floating(dtype: Any) -> bool:
     if isinstance(dtype, torch.dtype):
         return dtype.is_floating_point
     return bool(np.issubdtype(dtype, np.floating))
+
+
+def _divide(x: Any, n: int) -> Any:
+    """The AVG divide of a reduced host leaf, as the JAX package computes
+    it.  There numpy promotes an ``ml_dtypes`` bf16 array divided by an int
+    to f32, so a bf16 leaf's average is the f32 quotient of its
+    bf16-rounded sum; the port does the same."""
+    if isinstance(x, torch.Tensor) and x.dtype == torch.bfloat16:
+        return x.to(torch.float32) / n
+    return x / n
 
 
 class WorldSizeMode(Enum):
@@ -720,6 +729,7 @@ class Manager:
         value: Any,
         should_quantize: bool = False,
         reduce_op: str = REDUCE_AVG,
+        device_quantize: "Optional[bool]" = None,
     ) -> Work:
         """Fault-tolerant allreduce of a tensor/array or a pytree of them.
 
@@ -729,14 +739,18 @@ class Manager:
         ``should_commit`` (reference manager.py:385-467).
 
         Tensor leaves come back as tensors on the device they came from;
-        the device→host copy runs on the PG worker thread.  bf16 leaves
-        raise ``TypeError`` (numpy has no bf16; not ported yet).
+        the device→host copy runs on the PG worker thread (unquantized) or
+        inside the quantized collective.  bf16 leaves are reduced in f32
+        and rounded back to bf16; the AVG divide then takes that bf16 sum
+        to an f32 quotient, as the JAX package's numpy does (``_divide``).
+
+        ``should_quantize`` routes the leaves through
+        :func:`~torchft_tpu_torch.ops.collectives.allreduce_quantized` (int8
+        or fp8 on the wire); ``device_quantize`` is forwarded to it:
+        ``None`` = auto (kernel D on the card when every leaf is a CUDA
+        tensor).  A non-participant's zeros are host arrays, so it always
+        takes the host codec; the wire format is shared.
         """
-        if should_quantize:
-            raise NotImplementedError(
-                "quantized allreduce is not ported yet (next slice: "
-                "quantized collectives)"
-            )
         if self.errored():
             return completed_work(value)
 
@@ -745,23 +759,25 @@ class Manager:
 
         t_host = time.perf_counter()
         leaves, treedef = tree_flatten(value)
-        # Leaves pass through unmaterialized: the PG converts on its worker
-        # thread, so the device→host copy overlaps whatever the caller does
-        # next instead of blocking this thread (counted in the ``ring``
-        # phase).  Non-array leaves (Python scalars) still need numpy
-        # wrapping for the dtype checks below.
+        # Leaves pass through unmaterialized: the PG (or the quantized
+        # collective) converts them, so the device→host copy overlaps
+        # whatever the caller does next instead of blocking this thread
+        # (counted in the ``ring`` phase).  Non-array leaves (Python
+        # scalars) still need numpy wrapping for the dtype checks below.
         send_leaves: "List[Any]" = [
             x if isinstance(x, (np.ndarray, torch.Tensor)) else np.asarray(x)
             for x in leaves
         ]
-        dtypes = [_np_dtype(x) for x in send_leaves]  # raises on bf16
+        dtypes = [x.dtype for x in send_leaves]
         devices = [
             x.device if isinstance(x, torch.Tensor) else None
             for x in send_leaves
         ]
         if not self.is_participating():
             send_leaves = [
-                np.zeros(tuple(x.shape), dtype=dt)
+                torch.zeros(tuple(x.shape), dtype=dt)
+                if isinstance(dt, torch.dtype)
+                else np.zeros(tuple(x.shape), dtype=dt)
                 for x, dt in zip(send_leaves, dtypes)
             ]
         self._record_phase("host_sync", time.perf_counter() - t_host)
@@ -781,20 +797,35 @@ class Manager:
                 "pg.allreduce", replica=self._replica_id, step=self._step
             )
             t_submit = time.perf_counter()
-            work = self._pg.allreduce(send_leaves, pg_reduce_op)
+            if should_quantize:
+                from torchft_tpu_torch.ops.collectives import allreduce_quantized
 
-            def _postprocess(reduced: "List[np.ndarray]") -> Any:
+                work = allreduce_quantized(
+                    send_leaves, pg_reduce_op, self._pg,
+                    device_quantize=device_quantize,
+                )
+            else:
+                work = self._pg.allreduce(send_leaves, pg_reduce_op)
+
+            def _postprocess(reduced: "List[Any]") -> Any:
                 if reduce_op == REDUCE_AVG:
-                    reduced = [x / num_participants for x in reduced]
+                    reduced = [_divide(x, num_participants) for x in reduced]
                 return tree_unflatten(
                     treedef,
                     [
-                        x if dev is None else torch.from_numpy(x).to(dev)
+                        x if dev is None
+                        else (x if isinstance(x, torch.Tensor)
+                              else torch.from_numpy(x)).to(dev)
                         for x, dev in zip(reduced, devices)
                     ],
                 )
 
             chained = work.then(_postprocess)
+            # quantized-pipeline accounting for the step digest: the stats
+            # dict is filled once the pipeline finished, i.e. before _done
+            # fires (read through the dict, so _done holds no reference
+            # back to the Work whose future calls it)
+            qs = getattr(work, "quant_stats", None)
 
             # Track errors out-of-band: the returned Work must complete
             # cleanly so the training loop proceeds to should_commit.
@@ -802,6 +833,10 @@ class Manager:
 
             def _done(f: "concurrent.futures.Future[Any]") -> None:
                 self._record_phase("ring", time.perf_counter() - t_submit)
+                if isinstance(qs, dict):
+                    with self._phase_lock:
+                        self._summary_codec_s += float(qs.get("codec_s") or 0.0)
+                        self._summary_wire_s += float(qs.get("wire_s") or 0.0)
                 exc = f.exception()
                 if exc is not None:
                     self.report_error(
@@ -813,9 +848,19 @@ class Manager:
 
             chained.get_future().add_done_callback(_done)
             managed = Work(out)
-            # surface the TCP ring's measured wire accounting on the
-            # returned handle
-            for attr in ("wire_bytes", "unquantized_wire_bytes"):
+            # surface the collective's wire/codec accounting on the
+            # returned handle: the quantized pipeline's (wire_bytes set
+            # synchronously; codec_s_box/quant_stats written at pipeline
+            # completion — read after wait) and the TCP ring's measured
+            # wire_bytes on the unquantized path
+            for attr in (
+                "wire_bytes",
+                "unquantized_wire_bytes",
+                "device_quantized",
+                "wire_dtype",
+                "codec_s_box",
+                "quant_stats",
+            ):
                 if hasattr(work, attr):
                     setattr(managed, attr, getattr(work, attr))
             return managed

@@ -16,10 +16,15 @@ torchft/process_group.py:133-2023).  The fault-tolerance properties:
   tensor is copied to the host on the PG worker thread (``_as_numpy``), so
   the copy overlaps the caller.
 
-Numpy has no bfloat16, so a bf16 tensor raises ``TypeError`` here instead of
-being upcast silently (the JAX package reduces bf16 through ``ml_dtypes``).
-The subprocess-isolated ``ProcessGroupBabyTCP`` of the JAX package is not
-ported yet.
+Numpy has no bfloat16.  The allreduce reduces a bf16 tensor leaf as the JAX
+package reduces an ``ml_dtypes`` bf16 leaf: widened exactly to f32 on the
+host (its int16 bit pattern shifted into the high half of a 32-bit word, so
+the device-to-host copy stays at 2 bytes per element), bucketed with the f32
+leaves, reduced on the ring in f32 and rounded back to bf16 to nearest even
+(``torch.Tensor.to`` rounds as ``ml_dtypes`` does); it comes back as a CPU
+bf16 tensor.  Every other op raises ``TypeError`` on a bf16 leaf instead of
+upcasting it silently.  The subprocess-isolated ``ProcessGroupBabyTCP`` of
+the JAX package is not ported yet.
 """
 
 from __future__ import annotations
@@ -113,10 +118,28 @@ def _as_numpy(x: Any) -> np.ndarray:
         if x.dtype not in _TORCH_TO_NUMPY:
             raise TypeError(
                 f"process group leaves must have a numpy dtype, got {x.dtype} "
-                "(bf16 leaves are not supported yet)"
+                "(only allreduce takes bf16 leaves)"
             )
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def _allreduce_in(x: Any) -> np.ndarray:
+    """Host array an allreduce reduces: :func:`_as_numpy`, except that a
+    bf16 tensor widens exactly to f32 (module docstring)."""
+    if isinstance(x, torch.Tensor) and x.dtype == torch.bfloat16:
+        bits = x.detach().cpu().contiguous().view(torch.int16).numpy()
+        return (bits.view(np.uint16).astype(np.uint32) << 16).view(np.float32)
+    return _as_numpy(x)
+
+
+def _allreduce_out(x: Any, reduced: np.ndarray) -> Any:
+    """An allreduce result in its input leaf's type: a bf16 leaf's f32
+    result rounds back to a bf16 tensor (nearest even), the rest stay
+    numpy."""
+    if isinstance(x, torch.Tensor) and x.dtype == torch.bfloat16:
+        return torch.from_numpy(np.ascontiguousarray(reduced)).to(torch.bfloat16)
+    return reduced
 
 
 def _np_dtype(x: Any) -> np.dtype:
@@ -281,7 +304,9 @@ class ProcessGroupDummy(ProcessGroup):
         return self._world
 
     def allreduce(self, arrays: "List[Any]", op: str = REDUCE_SUM) -> Work:
-        return completed_work([_as_numpy(a).copy() for a in arrays])
+        return completed_work(
+            [_allreduce_out(a, _allreduce_in(a).copy()) for a in arrays]
+        )
 
     def allgather(self, array: Any) -> Work:
         return completed_work([_as_numpy(array).copy()])
@@ -726,49 +751,59 @@ class ProcessGroupTCP(ProcessGroup):
         return Work(fut)
 
     def _worker_loop(self, gen: int, q: "queue.Queue") -> None:
-        superseded = False
         while True:
             item = q.get()
             if item is None:
                 return
-            item_gen, fn, fut, op = item
-            with self._lock:
-                superseded = self._generation != gen
-                errored = self._errored
-            if superseded or item_gen != gen or errored is not None:
-                # Keep draining so every queued Work resolves — abandoned
-                # futures would hang their waiters forever.
-                fut.set_exception(
-                    errored or _PGAborted("process group reconfigured")
-                )
-                continue
-            self._flight_op = _flightrec.start(
-                op,
-                kind="collective",
-                generation=item_gen,
-                rank=self._rank,
-                world=self._world,
-                replica_id=self._replica_id,
+            self._run_item(gen, item)
+            # an idle worker pins nothing: the last op's closure, inputs,
+            # future and result (whose callbacks reach the Manager and the
+            # training state) go before the next blocking get
+            del item
+
+    def _run_item(
+        self, gen: int, item: "Tuple[int, Callable[[], Any], Future, str]"
+    ) -> None:
+        """Run one queued op on the worker (or fail it if its generation
+        is gone) and resolve its future."""
+        item_gen, fn, fut, op = item
+        with self._lock:
+            superseded = self._generation != gen
+            errored = self._errored
+        if superseded or item_gen != gen or errored is not None:
+            # Keep draining so every queued Work resolves — abandoned
+            # futures would hang their waiters forever.
+            fut.set_exception(
+                errored or _PGAborted("process group reconfigured")
             )
-            try:
-                result = fn()
-                with self._flight_swap_lock:
-                    flight_op, self._flight_op = self._flight_op, None
-                if flight_op is not None:
-                    flight_op.finish("ok")
-                fut.set_result(result)
-            except Exception as e:  # noqa: BLE001 - latch every op failure
-                # Flight-recorder dump BEFORE latching: when a wedged
-                # collective dies (deadline, peer reset), the op-level state
-                # — what was in flight, with whom, how far it got — is the
-                # evidence the postmortem needs (reference dumps the NCCL
-                # flight recorder on abort for the same reason,
-                # torchft/process_group.py:89-108,830-838).
-                self._dump_flight(f"collective failed: {e!r}", error=repr(e))
-                with self._lock:
-                    if self._errored is None:
-                        self._errored = e
-                fut.set_exception(e)
+            return
+        self._flight_op = _flightrec.start(
+            op,
+            kind="collective",
+            generation=item_gen,
+            rank=self._rank,
+            world=self._world,
+            replica_id=self._replica_id,
+        )
+        try:
+            result = fn()
+            with self._flight_swap_lock:
+                flight_op, self._flight_op = self._flight_op, None
+            if flight_op is not None:
+                flight_op.finish("ok")
+            fut.set_result(result)
+        except Exception as e:  # noqa: BLE001 - latch every op failure
+            # Flight-recorder dump BEFORE latching: when a wedged
+            # collective dies (deadline, peer reset), the op-level state
+            # — what was in flight, with whom, how far it got — is the
+            # evidence the postmortem needs (reference dumps the NCCL
+            # flight recorder on abort for the same reason,
+            # torchft/process_group.py:89-108,830-838).
+            self._dump_flight(f"collective failed: {e!r}", error=repr(e))
+            with self._lock:
+                if self._errored is None:
+                    self._errored = e
+            fut.set_exception(e)
 
     # -- flight recorder ---------------------------------------------------
 
@@ -1025,8 +1060,9 @@ class ProcessGroupTCP(ProcessGroup):
             # immediately (the DiLoCo overlap pattern: outer-grad allreduce
             # rides behind the next fragment's inner steps).
             deadline = time.monotonic() + deadline_budget
-            np_arrays = [_as_numpy(a) for a in arrays]
-            return self._allreduce_coalesced(np_arrays, op, deadline)
+            np_arrays = [_allreduce_in(a) for a in arrays]
+            reduced = self._allreduce_coalesced(np_arrays, op, deadline)
+            return [_allreduce_out(a, r) for a, r in zip(arrays, reduced)]
 
         work = self._submit(run, op="allreduce")
         # Wire accounting on the UNQUANTIZED path too (parity with the
@@ -1036,6 +1072,8 @@ class ProcessGroupTCP(ProcessGroup):
         # from shapes/dtypes — device arrays stay unmaterialized.
         def _leaf(a: Any) -> "Tuple[np.dtype, int]":
             if isinstance(a, torch.Tensor):
+                if a.dtype == torch.bfloat16:
+                    return np.dtype(np.float32), a.numel()
                 return _accumulation_dtype(_np_dtype(a)), a.numel()
             if not hasattr(a, "dtype") or not hasattr(a, "size"):
                 a = np.asarray(a)
@@ -1384,7 +1422,7 @@ class ProcessGroupWrapper(ProcessGroup):
     def allreduce(self, arrays: "List[Any]", op: str = REDUCE_SUM) -> Work:
         return self._wrap(
             self._pg.allreduce(arrays, op),
-            lambda: [_as_numpy(a) for a in arrays],
+            lambda: [_allreduce_out(a, _allreduce_in(a)) for a in arrays],
         )
 
     def allgather(self, array: Any) -> Work:
