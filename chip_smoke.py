@@ -9,14 +9,20 @@ Phases, any failure exits non-zero:
 
 1. Device: the card's name and power limit (nvidia-smi), then the build of
    every CUDA kernel of the main path from ``torchft_tpu_torch/csrc``
-   (one nvcc per source, all at once) into ``build/kernels``.
+   (one nvcc per source, all at once) into ``build/kernels``, with each
+   kernel's registers and spill bytes from ptxas (A and B must not spill).
 2. Kernel check: flash-attention kernels A (forward), B (dK, dV) and C (dQ)
    against their plain PyTorch twins on the same inputs — at the flagship's
    attention shapes (B=8, T=1024, 6 query heads over 3 KV heads expanded,
-   D=256, bf16, causal), a small non-causal case, and offset cases where
-   queries precede keys.  Times each kernel, its twin and the library
-   yardstick (``scaled_dot_product_attention``, timed here only; the port
-   never calls it), and computes each kernel's bound from the shapes.
+   D=256, bf16, causal), a small non-causal case, d=96 (not an
+   instantiated width), and offset cases (queries after the keys, keys
+   starting before, inside and after a query block; rows that see no key
+   must be exactly 0).  A and B launched twice on the same inputs must give
+   the same bits.  Times each kernel, its twin and the library yardstick
+   (``scaled_dot_product_attention``, timed here only; the port never
+   calls it), computes each kernel's bound from the shapes, and times the
+   layout copies ``flash_attention`` makes around the kernels and one
+   group's forward and backward with the card to itself.
 3. Main path: a native lighthouse and two replica groups as threads on the
    card, each with a Manager, a ProcessGroupTCP, DistributedDataParallel and
    an OptimizerWrapper around AdamW, train the flagship transformer
@@ -142,10 +148,10 @@ def check_kernels() -> "dict":
     # flagship attention: B=8, T=1024, H=6 (3 KV heads expanded), D=256
     b, t, h, hkv, d = 8, 1024, 6, 3, 256
     q = randn(b, t, h, d)
-    k = randn(b, t, hkv, d)
-    v = randn(b, t, hkv, d)
+    k_kv = randn(b, t, hkv, d)
+    v_kv = randn(b, t, hkv, d)
     do = randn(b, t, h, d)
-    k, v = fa._expand_gqa(k, v, h)
+    k, v = fa._expand_gqa(k_kv, v_kv, h)
     q3, k3, v3, do3 = (fa._to3(x) for x in (q, k, v, do))
     scale = 1.0 / math.sqrt(d)
     bh = b * h
@@ -186,39 +192,54 @@ def check_kernels() -> "dict":
         "flash_bwd_q": float((dq.float() - dq_ref.float()).abs().max()),
     }
 
+    # A and B sum in a fixed order (no atomics): a second launch on the
+    # same inputs gives the same bits
+    o_2, lse_2 = fa.flash_fwd(q3, k3, v3, scale, True)
+    dk_2, dv_2 = fa.flash_bwd_kv(q3, k3, v3, do3, lse, delta, scale, True)
+    assert torch.equal(o, o_2) and torch.equal(lse, lse_2), "A is not deterministic"
+    assert torch.equal(dk, dk_2) and torch.equal(dv, dv_2), "B is not deterministic"
+    del o_2, lse_2, dk_2, dv_2
+    log("kernel check, A and B launched twice on the flagship inputs: bitwise equal")
+
+    def held_to_twins(q_, k_, v_, do_, scale_, causal, q_off=0, k_off=0) -> None:
+        """A and B (and C) against their twins at one shape and offset
+        pair; query rows that see no key must come out exactly 0."""
+        o_, lse_ = fa.flash_fwd(q_, k_, v_, scale_, causal, q_off, k_off)
+        o_r, lse_r = fa.flash_fwd_plain(q_, k_, v_, scale_, causal, q_off, k_off)
+        torch.testing.assert_close(o_.float(), o_r.float(), atol=2e-2, rtol=2e-2)
+        torch.testing.assert_close(lse_, lse_r, atol=1e-3, rtol=0)
+        rows = min(max(0, k_off - q_off), q_.shape[1]) if causal else 0
+        assert torch.count_nonzero(o_[:, :rows]) == 0
+        assert bool((lse_[:, :rows] < -1e20).all())
+        dl_ = (do_.float() * o_.float()).sum(-1)
+        args = (q_, k_, v_, do_, lse_, dl_, scale_, causal, q_off, k_off)
+        dq_ = fa.flash_bwd_q(*args)
+        dk_, dv_ = fa.flash_bwd_kv(*args)
+        assert torch.count_nonzero(dq_[:, :rows]) == 0
+        if rows == q_.shape[1]:  # q precedes every k: every gradient is 0
+            assert torch.count_nonzero(dk_) == torch.count_nonzero(dv_) == 0
+            return
+        assert norm_err(dq_, fa.flash_bwd_q_plain(*args)) < 2e-2
+        for a_, b_ in zip((dk_, dv_), fa.flash_bwd_kv_plain(*args)):
+            assert norm_err(a_, b_) < 2e-2
+
     # small non-causal case at another head dim
     qs, ks, vs, dos = (randn(4, 256, 64) for _ in range(4))
-    o_s, lse_s = fa.flash_fwd(qs, ks, vs, 0.125, False)
-    o_sr, lse_sr = fa.flash_fwd_plain(qs, ks, vs, 0.125, False)
-    torch.testing.assert_close(o_s.float(), o_sr.float(), atol=2e-2, rtol=2e-2)
-    torch.testing.assert_close(lse_s, lse_sr, atol=1e-3, rtol=0)
-    dl_s = (dos.float() * o_s.float()).sum(-1)
-    args = (qs, ks, vs, dos, lse_s, dl_s, 0.125, False)
-    assert norm_err(fa.flash_bwd_q(*args), fa.flash_bwd_q_plain(*args)) < 2e-2
-    for a_, b_ in zip(fa.flash_bwd_kv(*args), fa.flash_bwd_kv_plain(*args)):
-        assert norm_err(a_, b_) < 2e-2
+    held_to_twins(qs, ks, vs, dos, 0.125, False)
     log("kernel check, [BH=4, T=256, D=64] bf16 non-causal: ok")
+    # a head dim that is not an instantiated width (runs the 128 one, its
+    # last 32 columns zero-filled)
+    held_to_twins(*(randn(4, 256, 96) for _ in range(4)), 1.0 / math.sqrt(96), True)
+    log("kernel check, [BH=4, T=256, D=96] bf16 causal: ok")
 
-    # offsets: keys start at 64 (rows 0..63 see nothing), then at T (q
-    # precedes every k: O must be exactly 0 and so must every gradient)
+    # offsets: queries after the keys (q_off=128); keys start at 64 (rows
+    # 0..63 see nothing), at 192 (inside a 128-row query block), then at T
+    # (q precedes every k: O must be exactly 0 and so must every gradient)
     qo, ko, vo, doo = (randn(4, 256, 256) for _ in range(4))
-    for k_off in (64, 256):
-        o_o, lse_o = fa.flash_fwd(qo, ko, vo, scale, True, 0, k_off)
-        o_or, _ = fa.flash_fwd_plain(qo, ko, vo, scale, True, 0, k_off)
-        rows = min(k_off, 256)
-        assert torch.count_nonzero(o_o[:, :rows]) == 0
-        assert bool((lse_o[:, :rows] < -1e20).all())
-        torch.testing.assert_close(o_o.float(), o_or.float(), atol=2e-2, rtol=2e-2)
-        dl_o = (doo.float() * o_o.float()).sum(-1)
-        args = (qo, ko, vo, doo, lse_o, dl_o, scale, True, 0, k_off)
-        dq_o = fa.flash_bwd_q(*args)
-        dk_o, dv_o = fa.flash_bwd_kv(*args)
-        assert torch.count_nonzero(dq_o[:, :rows]) == 0
-        if k_off == 256:
-            assert torch.count_nonzero(dk_o) == torch.count_nonzero(dv_o) == 0
-        else:
-            assert norm_err(dq_o, fa.flash_bwd_q_plain(*args)) < 2e-2
-    log("kernel check, offsets (k_off=64, k_off=T): masked rows exactly 0, ok")
+    for q_off, k_off in ((128, 0), (0, 64), (0, 192), (0, 256)):
+        held_to_twins(qo, ko, vo, doo, scale, True, q_off, k_off)
+    log("kernel check, offsets (q_off=128; k_off=64, 192, T): masked rows "
+        "exactly 0, ok")
 
     # f32 is not a kernel type: the wrapper must raise, not fall back
     try:
@@ -264,19 +285,136 @@ def check_kernels() -> "dict":
     pairs = live_pairs(t, t, True) * bh
     elem = bh * t * d * 2  # one [BH, T, D] bf16 tensor
     stat = bh * t * 4  # one [BH, T] f32 vector
+    # D-long products per live pair: A two (s, p v), B four, C three
+    flops = {"flash_fwd": 4 * d * pairs, "flash_bwd_kv": 8 * d * pairs,
+             "flash_bwd_q": 6 * d * pairs}
     bounds = {
-        "flash_fwd": bound(4 * d * pairs, 4 * elem + stat),
-        "flash_bwd_kv": bound(8 * d * pairs, 6 * elem + 2 * stat),
-        "flash_bwd_q": bound(6 * d * pairs, 5 * elem + 2 * stat),
+        "flash_fwd": bound(flops["flash_fwd"], 4 * elem + stat),
+        "flash_bwd_kv": bound(flops["flash_bwd_kv"], 6 * elem + 2 * stat),
+        "flash_bwd_q": bound(flops["flash_bwd_q"], 5 * elem + 2 * stat),
     }
     library = {"flash_fwd": lib_fwd, "flash_bwd_kv": lib_bwd, "flash_bwd_q": lib_bwd}
     for name, (ms, plain_ms) in times.items():
         log(f"  {name}: {ms:.4f} ms (plain twin {plain_ms:.4f} ms, bound "
             f"{bounds[name][0]:.4f} ms by {bounds[name][1]}, library "
-            f"{library[name]} ms)")
+            f"{library[name]} ms; {flops[name] / ms / 1e9:.1f} TFLOP/s)")
+    copies = time_layout_copies(q, k_kv, v_kv, do, o, h)
     return {
         "max_abs": max_abs, "times": times, "bounds": bounds, "library": library,
+        "copies": copies,
     }
+
+
+def time_layout_copies(q, k_kv, v_kv, do, o3, h: int) -> "dict":
+    """The layout copies ``flash_attention`` makes around the kernels for
+    one layer, which no kernel time includes: forward, the GQA expansion of
+    K and V, the three ``[B, T, H, D] -> [B*H, T, D]`` transposes and the
+    copy back of O (the model's ``reshape`` after ``_from3``); backward,
+    autograd's mirror images of the same (dO in, dQ/dK/dV back out, the
+    sum over the heads that share a KV head)."""
+    import torch
+
+    from torchft_tpu_torch.ops import flash_attention as fa
+
+    b, t, _, d = q.shape
+    hkv = k_kv.shape[2]
+    ke, ve = fa._expand_gqa(k_kv, v_kv, h)
+    fwd = {
+        "expand_gqa": cuda_ms(lambda: fa._expand_gqa(k_kv, v_kv, h), 20),
+        "to3_q_k_v": cuda_ms(lambda: (fa._to3(q), fa._to3(ke), fa._to3(ve)), 20),
+        "from3_o": cuda_ms(lambda: fa._from3(o3, b, h).reshape(b, t, h * d), 20),
+    }
+    g3 = o3  # any [B*H, T, D] tensor stands in for dQ, dK and dV
+
+    def grads_back():
+        dq_ = fa._from3(g3, b, h).contiguous()
+        dk_ = fa._from3(g3, b, h).reshape(b, t, hkv, h // hkv, d).sum(3)
+        dv_ = fa._from3(g3, b, h).reshape(b, t, hkv, h // hkv, d).sum(3)
+        return dq_, dk_, dv_
+
+    bwd = {
+        "to3_do": cuda_ms(lambda: fa._to3(do), 20),
+        "grads_back": cuda_ms(grads_back, 20),
+    }
+    out = {"forward_ms": sum(fwd.values()), "backward_ms": sum(bwd.values()),
+           "parts_ms": {**fwd, **bwd}}
+    log(f"  layout copies around the kernels, one layer [B={b}, T={t}, H={h}, "
+        f"KV heads {hkv}, D={d}] bf16: forward {out['forward_ms']:.4f} ms, "
+        f"backward {out['backward_ms']:.4f} ms "
+        + json.dumps({k_: round(v_, 4) for k_, v_ in out["parts_ms"].items()}))
+    return out
+
+
+def flagship_config():
+    """The flagship transformer (``bench.py:1663-1667``) at full width and
+    depth, bf16 compute, f32 parameters, flash attention."""
+    import torch
+
+    from torchft_tpu_torch.models import transformer as tf
+
+    return tf.TransformerConfig(
+        vocab_size=32000, d_model=1536, n_heads=6, n_kv_heads=3, d_ff=4096,
+        n_layers=16, max_seq_len=1024, dtype=torch.bfloat16,
+        param_dtype=torch.float32, remat=False, attn_impl="flash",
+    )
+
+
+def time_forward_backward(batch: int = 8, seq: int = 1024, reps: int = 3) -> "dict":
+    """One group's forward and backward at the flagship with the card to
+    itself (in the training paths the other group's copies share it)."""
+    import torch
+
+    from torchft_tpu_torch.models import transformer as tf
+
+    cfg = flagship_config()
+    model = tf.init_params(torch.Generator().manual_seed(0), cfg, "cuda")
+    grad_step = tf.make_grad_step(cfg)
+    tokens = torch.randint(
+        0, cfg.vocab_size, (batch, seq), generator=torch.Generator().manual_seed(1)
+    ).to("cuda")
+    grad_step(model, tokens)  # warm-up: allocator, cuBLAS handles
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        grad_step(model, tokens)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    del model, grad_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"median_ms": statistics.median(times), "all_ms": times}
+    log(f"forward and backward of one group, the card to itself, B={batch} "
+        f"T={seq}: median {out['median_ms']:.1f} ms of {times}")
+    return out
+
+
+def ptxas_report(build_log: "dict") -> "dict":
+    """Each compiled kernel's registers, static shared memory and spill
+    bytes, parsed from nvcc's ``-Xptxas -v`` output per source."""
+    import re
+
+    report = {}
+    for name, out in build_log.items():
+        entry = None
+        for line in out.splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                entry = {"function": m.group(1), "registers": None, "smem": 0,
+                         "spill_stores": None, "spill_loads": None}
+                report.setdefault(name, []).append(entry)
+                continue
+            if entry is None:
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                entry["spill_stores"], entry["spill_loads"] = map(int, m.groups())
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                entry["registers"] = int(m.group(1))
+                m = re.search(r"(\d+) bytes smem", line)
+                entry["smem"] = int(m.group(1)) if m else 0
+    return report
 
 
 # ---------------------------------------------------------------------------
@@ -301,11 +439,7 @@ def main_path(cfg=None, batch: int = 8, seq: int = 1024, device: str = "cuda") -
     from torchft_tpu_torch.models import transformer as tf
 
     if cfg is None:
-        cfg = tf.TransformerConfig(
-            vocab_size=32000, d_model=1536, n_heads=6, n_kv_heads=3, d_ff=4096,
-            n_layers=16, max_seq_len=1024, dtype=torch.bfloat16,
-            param_dtype=torch.float32, remat=False, attn_impl="flash",
-        )
+        cfg = flagship_config()
     total_steps, kill_at = 5, 3
     on_card = device == "cuda"
 
@@ -668,11 +802,7 @@ def diloco_path(
     from torchft_tpu_torch.models import transformer as tf
 
     if cfg is None:
-        cfg = tf.TransformerConfig(
-            vocab_size=32000, d_model=1536, n_heads=6, n_kv_heads=3, d_ff=4096,
-            n_layers=16, max_seq_len=1024, dtype=torch.bfloat16,
-            param_dtype=torch.float32, remat=False, attn_impl="flash",
-        )
+        cfg = flagship_config()
     on_card = device == "cuda"
     fragments = fragment_keys(cfg.n_layers, n_fragments)
     inner_per_sync = sync_every // n_fragments
@@ -888,16 +1018,40 @@ def main() -> int:
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
-    build_s = _kernels.build()
+    build_s = _kernels.build(force=True)
     log(f"kernels built in {build_s:.1f} s")
-    for name, out in _kernels.build_log.items():
-        for line in out.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+    ptxas = ptxas_report(_kernels.build_log)
+    for name, entries in ptxas.items():
+        for e in entries:
+            log(f"  ptxas {name}: {e['function']}: {e['registers']} registers, "
+                f"{e['smem']} B static shared memory, {e['spill_stores']} B "
+                f"spill stores, {e['spill_loads']} B spill loads")
+    # A and B keep their accumulators in registers: a spill would undo that
+    for name in ("flash_fwd", "flash_bwd_kv"):
+        assert ptxas.get(name), f"no ptxas report for {name}"
+        assert all(e["spill_stores"] == 0 and e["spill_loads"] == 0
+                   for e in ptxas[name]), f"{name} spills: {ptxas[name]}"
+    # ptxas sees static shared memory only; A and B take theirs at launch,
+    # sized as fwd_smem_bytes and bwd_kv_smem_bytes size it in csrc/
+    dp = 256
+    log("  dynamic shared memory per CTA at D=256: A (Q, 2 x (K, V)) "
+        f"{(128 + 4 * 64) * dp * 2} B, B (K, V, 2 x (Q, dO), P, dS, "
+        f"2 x (lse, delta)) {(2 * 64 + 4 * 64) * dp * 2 + 2 * 64 * 64 * 2 + 4 * 64 * 4} B")
 
     kernels = check_kernels()
     quant = check_quant_kernels()
     torch.cuda.empty_cache()
+    fwd_bwd = time_forward_backward()
+    # each layer of a group-step launches A, B and C once, and makes the
+    # layout copies around them once
+    attn = {"kernels_ms": 16 * sum(kernels["times"][n][0] for n in (
+        "flash_fwd", "flash_bwd_kv", "flash_bwd_q")),
+        "copies_ms": 16 * (kernels["copies"]["forward_ms"]
+                           + kernels["copies"]["backward_ms"])}
+    log(f"{card} | forward and backward {fwd_bwd['median_ms']:.1f} ms per "
+        f"group-step, of which attention kernels A+B+C x16 layers "
+        f"{attn['kernels_ms']:.1f} ms and their layout copies "
+        f"{attn['copies_ms']:.1f} ms")
 
     # wrapper name -> kernel name (csrc/, _kernels.KERNELS)
     counters = {

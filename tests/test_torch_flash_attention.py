@@ -116,6 +116,37 @@ def test_offsets_match_jax_and_mask_whole_rows():
     np.testing.assert_array_equal(o_all.numpy(), 0.0)
 
 
+@pytest.mark.parametrize("q_off,k_off", [(128, 0), (0, 192)])
+def test_offset_twins_match_jax(q_off, k_off):
+    """Kernels A's, B's and C's twins against the JAX ``_fwd``/``_bwd`` at
+    the offsets the card checks too: queries after the keys (q_off=128),
+    and keys starting inside a 128-row query block (k_off=192: rows
+    0..191 see no key and come out exactly 0)."""
+    q, k, v = _qkv(256, 32, h=2, hkv=2, seed=11 + q_off + k_off)
+    do = np.random.default_rng(5).standard_normal(q.shape).astype(np.float32)
+    scale = 1.0 / np.sqrt(32)
+    offs = jnp.array([q_off, k_off], jnp.int32)
+    jq3, jk3, jv3, jdo3 = (jfa._to3(x) for x in _jax(q, k, v, do))
+    j_o, j_lse = jfa._fwd(jq3, jk3, jv3, scale, True, offs)
+    j_grads = jfa._bwd(jq3, jk3, jv3, j_o, j_lse, jdo3, scale, True, offs)
+    tq3, tk3, tv3, tdo3 = (tfa._to3(x) for x in _torch(q, k, v, do))
+    o, lse = tfa.flash_fwd(tq3, tk3, tv3, scale, True, q_off, k_off)
+    dead = max(0, k_off - q_off)
+    np.testing.assert_array_equal(o.numpy()[:, :dead], 0.0)
+    assert np.all(lse.numpy()[:, :dead] < -1e20)
+    np.testing.assert_allclose(o.numpy(), np.asarray(j_o), **FWD_TOL)
+    np.testing.assert_allclose(
+        lse.numpy()[:, dead:], np.asarray(j_lse)[:, dead:], **FWD_TOL
+    )
+    delta = (tdo3 * o).sum(-1)
+    args = (tq3, tk3, tv3, tdo3, lse, delta, scale, True, q_off, k_off)
+    grads = (tfa.flash_bwd_q(*args), *tfa.flash_bwd_kv(*args))
+    for name, a, b in zip(("dq", "dk", "dv"), grads, j_grads):
+        b = np.asarray(b)
+        top = float(np.abs(b).max()) + 1e-12
+        np.testing.assert_allclose(a.numpy() / top, b / top, atol=1e-5, err_msg=name)
+
+
 def test_rejects_unaligned_seq():
     q, k, v = _torch(*_qkv(100, 32))
     with pytest.raises(ValueError, match="128"):
@@ -152,3 +183,44 @@ def test_kernels_match_twins_on_the_card():
     for a, b in ((dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
         err = (a.float() - b.float()).abs().max() / b.float().abs().max()
         assert err < 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 96, 128, 256])
+def test_register_tile_kernels_match_twins_on_the_card(d):
+    """Kernels A and B at each head-dim width they are instantiated at, and
+    at d = 96, which runs the 128 one with zero-filled columns; causal,
+    non-causal and at the offsets of a ring composition.  Rows that see no
+    key are exactly 0, and a second launch gives the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run: python3 chip_smoke.py)")
+    g = torch.Generator(device="cuda").manual_seed(d)
+    q3, k3, v3, do3 = (
+        torch.randn(4, 256, d, device="cuda", generator=g, dtype=torch.bfloat16)
+        for _ in range(4)
+    )
+    scale = 1.0 / np.sqrt(d)
+    cases = [(True, 0, 0), (False, 0, 0), (True, 128, 0), (True, 0, 64),
+             (True, 0, 192), (True, 0, 256)]
+    for causal, q_off, k_off in cases:
+        case = f"d={d} causal={causal} q_off={q_off} k_off={k_off}"
+        o, lse = tfa.flash_fwd(q3, k3, v3, scale, causal, q_off, k_off)
+        o_ref, lse_ref = tfa.flash_fwd_plain(q3, k3, v3, scale, causal, q_off, k_off)
+        torch.testing.assert_close(o.float(), o_ref.float(), atol=2e-2, rtol=2e-2, msg=case)
+        torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=0, msg=case)
+        dead = min(max(0, k_off - q_off), 256) if causal else 0
+        assert torch.count_nonzero(o[:, :dead]) == 0, case
+        assert bool((lse[:, :dead] < -1e20).all()), case
+        delta = (do3.float() * o.float()).sum(-1)
+        args = (q3, k3, v3, do3, lse, delta, scale, causal, q_off, k_off)
+        dk, dv = tfa.flash_bwd_kv(*args)
+        if dead == 256:
+            assert torch.count_nonzero(dk) == torch.count_nonzero(dv) == 0, case
+        else:
+            for a, b in zip((dk, dv), tfa.flash_bwd_kv_plain(*args)):
+                err = (a.float() - b.float()).abs().max() / b.float().abs().max()
+                assert err < 2e-2, (case, float(err))
+        o2, lse2 = tfa.flash_fwd(q3, k3, v3, scale, causal, q_off, k_off)
+        dk2, dv2 = tfa.flash_bwd_kv(*args)
+        assert torch.equal(o, o2) and torch.equal(lse, lse2), case
+        assert torch.equal(dk, dk2) and torch.equal(dv, dv2), case

@@ -92,12 +92,13 @@ def _stale(name: str) -> bool:
     )
 
 
-def build(names: "Optional[List[str]]" = None) -> float:
+def build(names: "Optional[List[str]]" = None, force: bool = False) -> float:
     """Compile the named kernels (default: all) that are missing or older
-    than their sources, all ``nvcc`` processes at once.  Returns the wall
+    than their sources (all of them with ``force``, which refills
+    :data:`build_log`), all ``nvcc`` processes at once.  Returns the wall
     seconds spent; raises with the compiler output on any failure."""
     names = list(KERNELS) if names is None else names
-    todo = [n for n in names if _stale(n)]
+    todo = [n for n in names if force or _stale(n)]
     t0 = time.perf_counter()
     if not todo:
         return 0.0

@@ -5,9 +5,9 @@
 // contiguous; lse and delta are [B*H, T] f32.  T is a multiple of 128 and D
 // a multiple of 16 of at most 256 (the Python wrappers check both).
 //
-// Products are WMMA 16x16x16 bf16 tiles with f32 accumulation, staged
-// through shared memory: a simple, correct first version.  wgmma, TMA and
-// warp specialisation are later work.
+// The WMMA helpers below (16x16x16 bf16 tiles with f32 accumulation,
+// staged through shared memory) are kernel C's; kernels A and B keep their
+// tiles in registers with the helpers of flash_mma.cuh.
 
 #pragma once
 
