@@ -10,15 +10,16 @@ Phases, any failure exits non-zero:
 1. Device: the card's name and power limit (nvidia-smi), then the build of
    every CUDA kernel of the main path from ``torchft_tpu_torch/csrc``
    (one nvcc per source, all at once) into ``build/kernels``, with each
-   kernel's registers and spill bytes from ptxas (A and B must not spill).
+   kernel's registers and spill bytes from ptxas (A, B and C must not
+   spill).
 2. Kernel check: flash-attention kernels A (forward), B (dK, dV) and C (dQ)
    against their plain PyTorch twins on the same inputs — at the flagship's
    attention shapes (B=8, T=1024, 6 query heads over 3 KV heads expanded,
    D=256, bf16, causal), a small non-causal case, d=96 (not an
    instantiated width), and offset cases (queries after the keys, keys
    starting before, inside and after a query block; rows that see no key
-   must be exactly 0).  A and B launched twice on the same inputs must give
-   the same bits.  Times each kernel, its twin and the library yardstick
+   must be exactly 0).  A, B and C launched twice on the same inputs must
+   give the same bits.  Times each kernel, its twin and the library yardstick
    (``scaled_dot_product_attention``, timed here only; the port never
    calls it), computes each kernel's bound from the shapes, and times the
    layout copies ``flash_attention`` makes around the kernels and one
@@ -36,8 +37,10 @@ Phases, any failure exits non-zero:
    and F (dequantize n shards, sum, average, requantize) through their
    public entry points, at the flagship DiLoCo fragment shapes ((25 348,
    2048) and (49 348, 2048) f32) and on edge rows (all-zero rows, exact .5
-   ties, a subnormal row, unaligned widths), against their plain twins on
-   the card, bit for bit; timed beside their twins and their bounds.
+   ties, a subnormal row, unaligned widths), F also at n = 1, 2, 3 shards
+   and at the widths that split its branches (2048, 16k + 7, 2064),
+   against their plain twins on the card, bit for bit; timed beside their
+   twins and their bounds.
 5. DiLoCo path: the same flagship in two replica groups as threads, inner
    AdamW steps and Streaming DiLoCo over 8 fragments (two blocks each;
    the embedding joins the first, the final norm the last) with int8
@@ -192,14 +195,17 @@ def check_kernels() -> "dict":
         "flash_bwd_q": float((dq.float() - dq_ref.float()).abs().max()),
     }
 
-    # A and B sum in a fixed order (no atomics): a second launch on the
+    # A, B and C sum in a fixed order (no atomics): a second launch on the
     # same inputs gives the same bits
     o_2, lse_2 = fa.flash_fwd(q3, k3, v3, scale, True)
     dk_2, dv_2 = fa.flash_bwd_kv(q3, k3, v3, do3, lse, delta, scale, True)
+    dq_2 = fa.flash_bwd_q(q3, k3, v3, do3, lse, delta, scale, True)
     assert torch.equal(o, o_2) and torch.equal(lse, lse_2), "A is not deterministic"
     assert torch.equal(dk, dk_2) and torch.equal(dv, dv_2), "B is not deterministic"
-    del o_2, lse_2, dk_2, dv_2
-    log("kernel check, A and B launched twice on the flagship inputs: bitwise equal")
+    assert torch.equal(dq, dq_2), "C is not deterministic"
+    del o_2, lse_2, dk_2, dv_2, dq_2
+    log("kernel check, A, B and C launched twice on the flagship inputs: "
+        "bitwise equal")
 
     def held_to_twins(q_, k_, v_, do_, scale_, causal, q_off=0, k_off=0) -> None:
         """A and B (and C) against their twins at one shape and offset
@@ -590,6 +596,10 @@ def main_path(cfg=None, batch: int = 8, seq: int = 1024, device: str = "cuda") -
 # and two blocks with the embedding
 FRAGMENT_ROWS = (25348, 49348)
 QUANT_COLS = 2048
+# widths that split kernel F's branches: the widest row it sums in
+# registers in one pass, an unaligned row (16k + 7), one 16-code chunk past
+# the register budget
+F_COLS = (2048, 16 * 127 + 7, 2064)
 
 
 def _bits_equal(a, b) -> bool:
@@ -606,10 +616,8 @@ def _max_abs(a, b) -> float:
 
 def check_quant_kernels() -> "dict":
     """Kernels D, E and F through their public entry points, held to their
-    twins on the card bit for bit.  F may also pass at one code and scales
-    to rtol 1e-6 (a different sum order would give that), and says so; by
-    construction it is bitwise (both sides round each product and sum on
-    its own, shards in index order)."""
+    twins on the card bit for bit (F's twin and kernel round each product
+    and sum on their own, shards in index order)."""
     import torch
 
     from torchft_tpu_torch.ops import pallas_quant as pq
@@ -636,6 +644,8 @@ def check_quant_kernels() -> "dict":
         "edge": edge,
         # unaligned rows: the scalar paths of the kernels
         "33x7": rand(33, 7), "5x130": rand(5, 130), "3x2051": rand(3, 2051),
+        # F's branches: one pass in registers, unaligned, past its budget
+        **{f"37x{c}": rand(37, c) for c in F_COLS},
     }
     err = {"quant_int8": 0.0, "dequant_int8": 0.0, "reduce_int8": 0.0}
     quantized = {}
@@ -666,33 +676,32 @@ def check_quant_kernels() -> "dict":
         qs = [pq.fused_quantize_into_int8(x) for x in xs]
         return torch.stack([q[0] for q in qs]), torch.stack([q[1] for q in qs])
 
-    f_bitwise = True
     stacked = {}
-    for name, n in (("fragment", 2), ("largest", 2), ("edge", 3), ("33x7", 3),
-                    ("3x2051", 2)):
+    f_cases = [("fragment", 2), ("largest", 2), ("edge", 3), ("33x7", 3),
+               ("3x2051", 2)]
+    f_cases += [(f"37x{c}", n) for c in F_COLS for n in (1, 2, 3)]
+    for name, n in f_cases:
         S, P = shards(name, n)
-        stacked[name] = (S, P)
+        stacked[name, n] = (S, P)
         for avg in (0, n):
             rs, rp = pq.fused_reduce_int8(S, P, avg)
             ts, tp = pq.reduce_int8_plain(S, P, 1.0 / avg if avg else 1.0)
-            codes = _max_abs(rp, tp)
-            err["reduce_int8"] = max(err["reduce_int8"], _max_abs(rs, ts), codes)
-            if not (_bits_equal(rs, ts) and _bits_equal(rp, tp)):
-                f_bitwise = False
-                assert codes <= 1.0, f"F differs by {codes} codes on {name}"
-                torch.testing.assert_close(rs, ts, rtol=1e-6, atol=0)
-    log("kernel check F: " + (
-        "bitwise equal to the twin (shards summed in index order)"
-        if f_bitwise else
-        "within one code and scales rtol 1e-6 of the twin, NOT bitwise"
-    ) + " at fragment, largest, edge, 33x7, 3x2051 with average_by 0 and n")
+            err["reduce_int8"] = max(
+                err["reduce_int8"], _max_abs(rs, ts), _max_abs(rp, tp)
+            )
+            assert _bits_equal(rs, ts) and _bits_equal(rp, tp), (
+                f"F differs from its twin on {name}, n={n}, average_by={avg}"
+            )
+    log("kernel check F: bitwise equal to the twin (shards summed in index "
+        "order) at " + ", ".join(f"{name} n={n}" for name, n in f_cases)
+        + ", each with average_by 0 and n")
     torch.cuda.synchronize()
 
     # timings at the flagship fragment; L2 (50 MB) is smaller than any
     # input here, so every launch reads device memory cold
     x = cases["fragment"]
     s, p = quantized["fragment"]
-    S, P = stacked["fragment"]
+    S, P = stacked["fragment", 2]
     times = {
         "quant_int8": (
             cuda_ms(lambda: pq.quantize_int8(x), 20),
@@ -733,7 +742,7 @@ def check_quant_kernels() -> "dict":
         f"{d_largest:.4f} ms (bound {bound_largest:.4f} ms by bytes)")
     return {
         "max_abs": err, "times": times, "bounds": bounds,
-        "library": {k: None for k in times}, "f_bitwise": f_bitwise,
+        "library": {k: None for k in times},
     }
 
 
@@ -1026,17 +1035,20 @@ def main() -> int:
             log(f"  ptxas {name}: {e['function']}: {e['registers']} registers, "
                 f"{e['smem']} B static shared memory, {e['spill_stores']} B "
                 f"spill stores, {e['spill_loads']} B spill loads")
-    # A and B keep their accumulators in registers: a spill would undo that
-    for name in ("flash_fwd", "flash_bwd_kv"):
+    # A, B and C keep their accumulators in registers: a spill would undo
+    # that
+    for name in ("flash_fwd", "flash_bwd_kv", "flash_bwd_q"):
         assert ptxas.get(name), f"no ptxas report for {name}"
         assert all(e["spill_stores"] == 0 and e["spill_loads"] == 0
                    for e in ptxas[name]), f"{name} spills: {ptxas[name]}"
-    # ptxas sees static shared memory only; A and B take theirs at launch,
-    # sized as fwd_smem_bytes and bwd_kv_smem_bytes size it in csrc/
+    # ptxas sees static shared memory only; A, B and C take theirs at
+    # launch, sized as fwd_smem_bytes, bwd_kv_smem_bytes and
+    # bwd_q_smem_bytes size it in csrc/
     dp = 256
     log("  dynamic shared memory per CTA at D=256: A (Q, 2 x (K, V)) "
         f"{(128 + 4 * 64) * dp * 2} B, B (K, V, 2 x (Q, dO), P, dS, "
-        f"2 x (lse, delta)) {(2 * 64 + 4 * 64) * dp * 2 + 2 * 64 * 64 * 2 + 4 * 64 * 4} B")
+        f"2 x (lse, delta)) {(2 * 64 + 4 * 64) * dp * 2 + 2 * 64 * 64 * 2 + 4 * 64 * 4} B, "
+        f"C (Q, dO, 2 x (K, V)) {(2 * 128 + 4 * 32) * dp * 2} B")
 
     kernels = check_kernels()
     quant = check_quant_kernels()

@@ -188,8 +188,8 @@ def test_kernels_match_twins_on_the_card():
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [64, 96, 128, 256])
 def test_register_tile_kernels_match_twins_on_the_card(d):
-    """Kernels A and B at each head-dim width they are instantiated at, and
-    at d = 96, which runs the 128 one with zero-filled columns; causal,
+    """Kernels A, B and C at each head-dim width they are instantiated at,
+    and at d = 96, which runs the 128 one with zero-filled columns; causal,
     non-causal and at the offsets of a ring composition.  Rows that see no
     key are exactly 0, and a second launch gives the same bits."""
     if not torch.cuda.is_available():
@@ -214,13 +214,19 @@ def test_register_tile_kernels_match_twins_on_the_card(d):
         delta = (do3.float() * o.float()).sum(-1)
         args = (q3, k3, v3, do3, lse, delta, scale, causal, q_off, k_off)
         dk, dv = tfa.flash_bwd_kv(*args)
+        dq = tfa.flash_bwd_q(*args)
+        assert torch.count_nonzero(dq[:, :dead]) == 0, case
         if dead == 256:
             assert torch.count_nonzero(dk) == torch.count_nonzero(dv) == 0, case
         else:
-            for a, b in zip((dk, dv), tfa.flash_bwd_kv_plain(*args)):
+            pairs = zip((dq, dk, dv),
+                        (tfa.flash_bwd_q_plain(*args), *tfa.flash_bwd_kv_plain(*args)))
+            for a, b in pairs:
                 err = (a.float() - b.float()).abs().max() / b.float().abs().max()
                 assert err < 2e-2, (case, float(err))
         o2, lse2 = tfa.flash_fwd(q3, k3, v3, scale, causal, q_off, k_off)
         dk2, dv2 = tfa.flash_bwd_kv(*args)
+        dq2 = tfa.flash_bwd_q(*args)
         assert torch.equal(o, o2) and torch.equal(lse, lse2), case
         assert torch.equal(dk, dk2) and torch.equal(dv, dv2), case
+        assert torch.equal(dq, dq2), case

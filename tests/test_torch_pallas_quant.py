@@ -118,13 +118,20 @@ def test_dequantize_twin_matches_jax(shape):
     np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
 
 
+# widths that split kernel F's branches on the card: 2048 codes, the
+# widest row it sums in registers in one pass; 16k + 7, an unaligned row;
+# 2064, one 16-code chunk past the register budget (both two-pass)
+REDUCE_COLS = [2048, 16 * 2 + 7, 2064]
+
+
 @pytest.mark.parametrize("average_by", [0, 3])
-def test_reduce_twin_matches_jax(average_by):
-    n, rows, cols = 3, 9, 37
-    shards = [_rand((rows, cols), seed=200 + i) for i in range(n)]
-    shards[0][3] = 0.0
-    shards[1][3] = 0.0
-    shards[2][3] = 0.0  # a row that sums to zero
+@pytest.mark.parametrize("cols", REDUCE_COLS)
+@pytest.mark.parametrize("n", [1, 2, 3])
+def test_reduce_twin_matches_jax(n, cols, average_by):
+    rows = 9
+    shards = [_rand((rows, cols), seed=200 + 10 * n + i + cols) for i in range(n)]
+    for s in shards:
+        s[3] = 0.0  # a row that sums to zero
     quantized = [jax_host_q.quantize(s) for s in shards]
     scales = np.stack([q[0] for q in quantized])
     payloads = np.stack([q[1] for q in quantized])
@@ -213,5 +220,21 @@ def test_kernels_match_twins_on_the_card():
             ts, tp = tpq.reduce_int8_plain(S, P, inv)
             assert torch.equal(rs.view(torch.int32), ts.view(torch.int32))
             assert torch.equal(rp, tp)
+    # kernel F at every shard count and at the widths that split its
+    # branches (one pass in registers; unaligned; past the register budget)
+    for n in (1, 2, 3):
+        for cols in REDUCE_COLS:
+            xs = torch.randn(n, 37, cols, device="cuda", generator=g)
+            xs[:, 3] = 0.0
+            qs = [tpq.quantize_int8(x) for x in xs]
+            S = torch.stack([q[0] for q in qs])
+            P = torch.stack([q[1] for q in qs])
+            for avg in (0, 3):
+                rs, rp = tpq.reduce_int8(S, P, avg)
+                ts, tp = tpq.reduce_int8_plain(S, P, 1.0 / avg if avg else 1.0)
+                case = f"n={n} cols={cols} average_by={avg}"
+                assert torch.equal(rs.view(torch.int32), ts.view(torch.int32)), case
+                assert torch.equal(rp, tp), case
+                assert rs[3] == 1.0 and not rp[3].any(), case
     with pytest.raises(TypeError):
         tpq.quantize_int8(torch.zeros(4, 8, device="cuda", dtype=torch.float16))

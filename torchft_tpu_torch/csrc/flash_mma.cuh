@@ -1,6 +1,7 @@
 // Register-tile helpers of the flash-attention kernels (flash_fwd.cu,
-// flash_bwd_kv.cu): warp-level mma.sync products, ldmatrix fragment loads
-// and cp.async copies, written as PTX inline assembly for sm_90a.
+// flash_bwd_kv.cu, flash_bwd_q.cu): warp-level mma.sync products, ldmatrix
+// fragment loads and cp.async copies, written as PTX inline assembly for
+// sm_90a.
 //
 // Fragments of mma.sync.m16n8k16 (bf16 in, f32 accumulate), per lane with
 // g = lane / 4 and t = lane % 4:
@@ -67,21 +68,24 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // Copy ROWS rows of a [*, d] bf16 array (row stride d) into a swizzled
 // tile of DP-wide rows; chunks at or past d / 8 are zero-filled.  All
-// kThreads threads take part.
+// kThreads threads take part: thread i copies chunk i % (DP / 8) of rows
+// i / (DP / 8) + it * kThreads / (DP / 8).  That step is a multiple of 8
+// rows, so all of a thread's copies share one swizzle and one zero-fill
+// test, and their destinations differ by immediates: the compiler holds a
+// few registers for the copies, not one address per chunk.
 template <int ROWS, int DP>
 __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
                                           int d) {
   constexpr int kChunks = DP / 8;
-  static_assert((ROWS * kChunks) % kThreads == 0, "tile not a thread multiple");
-  const int valid = d >> 3;
+  constexpr int kStep = kThreads / kChunks;  // rows per pass
+  static_assert(kStep % 8 == 0 && ROWS % kStep == 0, "tile not a pass multiple");
+  const int row = threadIdx.x / kChunks, c = threadIdx.x % kChunks;
+  const bool ok = c < (d >> 3);
+  const uint32_t to = dst + tile_off<DP>(row, c);
+  const bf16* from = src + row * d + c * 8;
 #pragma unroll
-  for (int it = 0; it < ROWS * kChunks / kThreads; ++it) {
-    const int idx = it * kThreads + threadIdx.x;
-    const int row = idx / kChunks, c = idx % kChunks;
-    const bool ok = c < valid;
-    cp_async16(dst + tile_off<DP>(row, c), ok ? src + row * d + c * 8 : src,
-               ok);
-  }
+  for (int it = 0; it < ROWS / kStep; ++it)
+    cp_async16(to + it * kStep * DP * 2, ok ? from + it * kStep * d : src, ok);
 }
 
 // Copy the first d columns of ROWS rows of a swizzled tile out to a

@@ -13,9 +13,9 @@
 // denormals are neither flushed nor treated as zero.
 //
 // Layout: rows of `cols` contiguous elements, one CTA of kThreads threads
-// per row (the TPU kernels' 32-row tiles and 128-lane padding are layout
-// artefacts of that machine and are not carried over: padding with zeros
-// changes no absmax).
+// per row (kernel F's one-pass branch: one warp per row).  The TPU kernels'
+// 32-row tiles and 128-lane padding are layout artefacts of that machine
+// and are not carried over: padding with zeros changes no absmax.
 
 #pragma once
 
@@ -61,7 +61,7 @@ __device__ __forceinline__ signed char q8(float x, float scale) {
   return static_cast<signed char>(static_cast<int>(v));
 }
 
-__device__ __forceinline__ bool aligned(const void* p, uintptr_t bytes) {
+__host__ __device__ __forceinline__ bool aligned(const void* p, uintptr_t bytes) {
   return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
 }
 
