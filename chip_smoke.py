@@ -33,7 +33,18 @@ Phases, any failure exits non-zero:
    PGTransport and both train two more steps.  Every survivor step must
    commit, losses must be finite, the two groups must end bitwise equal,
    and every kernel must have launched (its twin never).
-4. Quantization kernels: D (row absmax + int8 quantize), E (dequantize)
+4. Heal path: the same flagship in three replica groups as threads on the
+   card, each with a Manager given no checkpoint transport, so the default
+   HTTPTransport heals (``TORCHFT_HEAL_STREAM`` and ``TORCHFT_PLAN_VERIFY``
+   on); five survivor steps, group 2 shuts down after step 3, restarts from
+   a fresh init and heals striped from groups 0 and 1.  Every survivor step
+   must commit, the rejoiner's heal must name two sources, the three groups
+   must end bitwise equal (parameters and AdamW state, on the same devices),
+   no live plan may be rejected, and the sources must serve the fragments
+   from the native data plane when it is built.  Prints the heal's five
+   phases, wire bytes and GB/s, changed fragments, the data plane's
+   counters, the plan verdicts, peak memory and step times.
+5. Quantization kernels: D (row absmax + int8 quantize), E (dequantize)
    and F (dequantize n shards, sum, average, requantize) through their
    public entry points, at the flagship DiLoCo fragment shapes ((25 348,
    2048) and (49 348, 2048) f32) and on edge rows (all-zero rows, exact .5
@@ -41,7 +52,7 @@ Phases, any failure exits non-zero:
    and at the widths that split its branches (2048, 16k + 7, 2064),
    against their plain twins on the card, bit for bit; timed beside their
    twins and their bounds.
-5. DiLoCo path: the same flagship in two replica groups as threads, inner
+6. DiLoCo path: the same flagship in two replica groups as threads, inner
    AdamW steps and Streaming DiLoCo over 8 fragments (two blocks each;
    the embedding joins the first, the final norm the last) with int8
    outer syncs quantized on the card by kernel D (``sync_every=16``,
@@ -428,9 +439,20 @@ def ptxas_report(build_log: "dict") -> "dict":
 # ---------------------------------------------------------------------------
 
 
-def main_path(cfg=None, batch: int = 8, seq: int = 1024, device: str = "cuda") -> "dict":
-    """Phase 3 at the flagship config; ``cfg``/``batch``/``seq``/``device``
-    let a CPU rehearsal drive the same code at a tiny size."""
+HEAL_PHASES = ("heal_manifest", "heal_diff", "heal_wire", "heal_decode", "heal_recv")
+
+
+def ddp_group(gid: int, seed: int, stop_at: int, cfg, batch: int, seq: int,
+              device: str, lighthouse_addr: str, compute, pg_transport: bool,
+              label: str = "step") -> dict:
+    """One FT-DDP replica group of phases 3 and 4, run as a thread: the
+    flagship (``cfg``) with AdamW under a Manager that heals over
+    PGTransport, or over its default HTTPTransport, trained to step
+    ``stop_at``.  Returns its steps, the heals it received
+    (``Manager.heal_info()`` with the step's heal phases), its phase times,
+    its model and optimizer, and its transport's native data-plane
+    counters.  ``compute`` is a lock the groups take turns on, so only one
+    group's activations are live at a time."""
     import torch
 
     from torchft_tpu_torch import (
@@ -441,96 +463,107 @@ def main_path(cfg=None, batch: int = 8, seq: int = 1024, device: str = "cuda") -
         ProcessGroupTCP,
         module_grads,
     )
-    from torchft_tpu_torch.coordination import LighthouseServer
     from torchft_tpu_torch.models import transformer as tf
+
+    model = tf.init_params(torch.Generator().manual_seed(seed), cfg, device)
+    opt = torch.optim.AdamW(
+        model.parameters(), lr=3e-4, betas=(0.9, 0.95), eps=1e-8,
+        weight_decay=0.1,
+    )
+
+    def state_dict():
+        return {"model": model.state_dict(), "optim": opt.state_dict()}
+
+    def load_state_dict(sd):
+        model.load_state_dict(sd["model"])
+        opt.load_state_dict(sd["optim"])
+
+    def sync() -> None:
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    pg = ProcessGroupTCP(timeout=600.0)
+    holder = {}
+    manager = Manager(
+        pg=pg, min_replica_size=1,
+        load_state_dict=load_state_dict, state_dict=state_dict,
+        lighthouse_addr=lighthouse_addr, replica_id=f"group{gid}",
+        group_rank=0, group_world_size=1,
+        checkpoint_transport=PGTransport(
+            pg, timeout=600.0,
+            state_dict_fn=lambda: holder["m"]._manager_state_dict(),
+        ) if pg_transport else None,
+        use_async_quorum=False, timeout=600.0, quorum_timeout=600.0,
+    )
+    holder["m"] = manager
+    optim = OptimizerWrapper(manager, opt)
+    ddp = DistributedDataParallel(manager)
+    grad_step = tf.make_grad_step(cfg)
+    steps, heals = [], []
+    try:
+        while manager.current_step() < stop_at:
+            phases0 = manager.phase_times()
+            t0 = time.perf_counter()
+            optim.zero_grad()  # quorum (and heal, for a rejoiner)
+            t1 = time.perf_counter()
+            step = manager.current_step()  # a heal moves it
+            tokens = torch.randint(
+                0, cfg.vocab_size, (batch, seq),
+                generator=torch.Generator().manual_seed(1000 * gid + step),
+            ).to(device)
+            with compute:
+                loss, _ = grad_step(model, tokens)
+                sync()
+            t2 = time.perf_counter()
+            avg = ddp.allreduce_gradients(module_grads(model)).wait(timeout=600)
+            committed = optim.step(model, avg)
+            sync()
+            t3 = time.perf_counter()
+            phases = manager.phase_times()
+            delta = {k: (phases.get(k, 0.0) - phases0.get(k, 0.0)) * 1e3
+                     for k in phases if phases.get(k, 0.0) > phases0.get(k, 0.0)}
+            steps.append({
+                "group": gid, "step": step, "loss": float(loss),
+                "committed": committed, "step_ms": (t3 - t0) * 1e3,
+                "quorum_ms": (t1 - t0) * 1e3, "compute_ms": (t2 - t1) * 1e3,
+                "sync_ms": (t3 - t2) * 1e3, "phases_ms": delta,
+            })
+            log(f"  {label} {json.dumps(steps[-1])}")
+            # a striped heal's sub-phases can cover it whole, leaving the
+            # heal_recv residue at 0: any heal phase marks a heal
+            if any(k in delta for k in HEAL_PHASES):
+                info = manager.heal_info()
+                info.pop("phases", None)
+                info["phases_ms"] = {k: delta.get(k, 0.0) for k in HEAL_PHASES}
+                info["at_step"] = step
+                heals.append(info)
+                log(f"  group{gid} healed: {json.dumps(info)}")
+        native = getattr(manager._checkpoint_transport, "_frag_native", None)
+        return {
+            "steps": steps, "heals": heals, "phases": manager.phase_times(),
+            "final_step": manager.current_step(), "model": model, "opt": opt,
+            "native_counters": native.counters() if native is not None else None,
+        }
+    finally:
+        manager.shutdown()
+
+
+def main_path(cfg=None, batch: int = 8, seq: int = 1024, device: str = "cuda") -> "dict":
+    """Phase 3 at the flagship config; ``cfg``/``batch``/``seq``/``device``
+    let a CPU rehearsal drive the same code at a tiny size."""
+    import torch
+
+    from torchft_tpu_torch.coordination import LighthouseServer
 
     if cfg is None:
         cfg = flagship_config()
     total_steps, kill_at = 5, 3
     on_card = device == "cuda"
-
-    def sync() -> None:
-        if on_card:
-            torch.cuda.synchronize()
-
-    grad_step = tf.make_grad_step(cfg)
-    # One card holds both replica groups: their forward/backward passes take
-    # turns (the card would serialize them anyway), so the activations of
-    # only one group are live at a time.
     compute = threading.Lock()
 
     def group(gid: int, seed: int, stop_at: int) -> dict:
-        model = tf.init_params(torch.Generator().manual_seed(seed), cfg, device)
-        opt = torch.optim.AdamW(
-            model.parameters(), lr=3e-4, betas=(0.9, 0.95), eps=1e-8,
-            weight_decay=0.1,
-        )
-
-        def state_dict():
-            return {"model": model.state_dict(), "optim": opt.state_dict()}
-
-        def load_state_dict(sd):
-            model.load_state_dict(sd["model"])
-            opt.load_state_dict(sd["optim"])
-
-        pg = ProcessGroupTCP(timeout=600.0)
-        holder = {}
-        manager = Manager(
-            pg=pg, min_replica_size=1,
-            load_state_dict=load_state_dict, state_dict=state_dict,
-            lighthouse_addr=lighthouse.address(), replica_id=f"group{gid}",
-            group_rank=0, group_world_size=1,
-            checkpoint_transport=PGTransport(
-                pg, timeout=600.0,
-                state_dict_fn=lambda: holder["m"]._manager_state_dict(),
-            ),
-            use_async_quorum=False, timeout=600.0, quorum_timeout=600.0,
-        )
-        holder["m"] = manager
-        optim = OptimizerWrapper(manager, opt)
-        ddp = DistributedDataParallel(manager)
-        steps = []
-        try:
-            while manager.current_step() < stop_at:
-                step = manager.current_step()
-                tokens = torch.randint(
-                    0, cfg.vocab_size, (batch, seq),
-                    generator=torch.Generator().manual_seed(1000 * gid + step),
-                ).to(device)
-                phases0 = manager.phase_times()
-                t0 = time.perf_counter()
-                optim.zero_grad()  # quorum (and heal, for a rejoiner)
-                t1 = time.perf_counter()
-                with compute:
-                    loss, _ = grad_step(model, tokens)
-                    sync()
-                t2 = time.perf_counter()
-                avg = ddp.allreduce_gradients(module_grads(model)).wait(timeout=600)
-                committed = optim.step(model, avg)
-                sync()
-                t3 = time.perf_counter()
-                phases = manager.phase_times()
-                steps.append({
-                    "group": gid, "step": step, "loss": float(loss),
-                    "committed": committed, "step_ms": (t3 - t0) * 1e3,
-                    "quorum_ms": (t1 - t0) * 1e3, "compute_ms": (t2 - t1) * 1e3,
-                    "sync_ms": (t3 - t2) * 1e3,
-                    "phases_ms": {
-                        k: (phases.get(k, 0.0) - phases0.get(k, 0.0)) * 1e3
-                        for k in phases
-                        if phases.get(k, 0.0) - phases0.get(k, 0.0) > 0
-                    },
-                })
-                log(f"  step {json.dumps(steps[-1])}")
-            params = {
-                n: p.detach().clone() for n, p in model.named_parameters()
-            } if stop_at == total_steps else None
-            return {
-                "steps": steps, "phases": manager.phase_times(),
-                "final_step": manager.current_step(), "params": params,
-            }
-        finally:
-            manager.shutdown()
+        return ddp_group(gid, seed, stop_at, cfg, batch, seq, device,
+                         lighthouse.address(), compute, pg_transport=True)
 
     lighthouse = LighthouseServer(
         min_replicas=2, join_timeout_ms=100, heartbeat_timeout_ms=5000
@@ -545,7 +578,9 @@ def main_path(cfg=None, batch: int = 8, seq: int = 1024, device: str = "cuda") -
         first = ex.submit(group, 1, 0, kill_at).result(timeout=1800)
         log(f"group1 shut down after step {first['final_step']}; "
             "restarting it from a fresh init")
+        del first["model"], first["opt"]
         if on_card:
+            gc.collect()
             torch.cuda.empty_cache()
         rejoiner = ex.submit(group, 1, 12345, total_steps).result(timeout=1800)
         survivor = survivor_f.result(timeout=1800)
@@ -564,13 +599,14 @@ def main_path(cfg=None, batch: int = 8, seq: int = 1024, device: str = "cuda") -
     assert rejoiner["final_step"] == survivor["final_step"] == total_steps
     assert rejoiner["phases"].get("heal_recv", 0.0) > 0.0, "rejoiner did not heal"
     assert survivor["phases"].get("heal_send", 0.0) > 0.0
+    params = dict(survivor["model"].named_parameters())
     mismatched = [
-        n for n, p in survivor["params"].items()
-        if not torch.equal(p, rejoiner["params"][n])
+        n for n, p in rejoiner["model"].named_parameters()
+        if not torch.equal(p, params[n])
     ]
     assert not mismatched, f"groups differ after heal: {mismatched[:5]}"
     log(f"main path: {total_steps} survivor steps all committed; rejoiner "
-        f"healed and the two groups' {len(survivor['params'])} parameters "
+        f"healed and the two groups' {len(params)} parameters "
         "are bitwise equal")
     step_ms = [s["step_ms"] for s in survivor["steps"]]
     summary = {
@@ -589,7 +625,180 @@ def main_path(cfg=None, batch: int = 8, seq: int = 1024, device: str = "cuda") -
 
 
 # ---------------------------------------------------------------------------
-# phase 4: quantization kernels against their twins
+# phase 4: the heal path — three groups on the default HTTPTransport
+# ---------------------------------------------------------------------------
+
+def time_heal_encode(state) -> "dict":
+    """Split a heal source's encode of fragment 0 of ``state`` (the
+    default 8-fragment layout) into its steps, each in ms and GB/s: the
+    copies of its tensors to the host, the serialize pass (which copies
+    them again), and the sha256 of the wire bytes by hashlib and by the
+    native library."""
+    import hashlib
+
+    from torchft_tpu_torch.checkpointing import fragdata
+    from torchft_tpu_torch.checkpointing import fragments as frags
+    from torchft_tpu_torch.checkpointing import serialization as ser
+    from torchft_tpu_torch.utils.pytree import tree_flatten
+
+    leaves = tree_flatten(state)[0]
+    slots = frags.fragment_slots("0", len(leaves), frags.DEFAULT_HEAL_FRAGMENTS)
+    frag = {str(i): leaves[i] for i in slots}
+    out = {}
+
+    def timed(name, fn, nbytes):
+        t0 = time.perf_counter()
+        res = fn()
+        dt = time.perf_counter() - t0
+        out[name] = {"ms": dt * 1e3, "gb_per_s": nbytes / 1e9 / dt}
+        return res
+
+    nbytes = sum(x.numel() * x.element_size() for x in frag.values()
+                 if hasattr(x, "element_size"))
+    timed("host_copy", lambda: [ser._tensor_host(x) for x in frag.values()
+                                if hasattr(x, "element_size")], nbytes)
+    raw = timed("serialize", lambda: ser.serialize(frag), nbytes)
+    timed("sha256_hashlib", lambda: hashlib.sha256(raw).hexdigest(), len(raw))
+    if fragdata.available():
+        timed("sha256_native", lambda: fragdata.native_sha256(raw), len(raw))
+    out["bytes"] = len(raw)
+    return out
+
+
+def heal_path(cfg=None, batch: int = 8, seq: int = 1024, device: str = "cuda") -> "dict":
+    """Phase 4 at the flagship config: three replica groups with the
+    Manager's default transport (HTTP, striped and delta heal), the live
+    plan check armed; ``cfg``/``batch``/``seq``/``device`` let a CPU
+    rehearsal drive the same code at a tiny size."""
+    import torch
+
+    from torchft_tpu_torch.checkpointing import fragdata
+    from torchft_tpu_torch.coordination import LighthouseServer
+    from torchft_tpu_torch.utils import flightrecorder as flightrec
+    from torchft_tpu_torch.utils import metrics
+
+    if cfg is None:
+        cfg = flagship_config()
+    total_steps, kill_at, n_groups, victim = 5, 3, 3, 2
+    flightrec.RECORDER.clear()
+    on_card = device == "cuda"
+    env_before = {k: os.environ.get(k) for k in ("TORCHFT_HEAL_STREAM", "TORCHFT_PLAN_VERIFY")}
+    os.environ["TORCHFT_HEAL_STREAM"] = "1"
+    os.environ["TORCHFT_PLAN_VERIFY"] = "1"
+    verdicts = [(plane, verdict) for plane in ("reduction", "serving", "stripe")
+                for verdict in ("accept", "reject", "error")]
+    plan0 = {pv: metrics.PLAN_VERIFY_TOTAL.labels(plane=pv[0], verdict=pv[1]).get()
+             for pv in verdicts}
+    compute = threading.Lock()
+
+    def group(gid: int, seed: int, stop_at: int) -> dict:
+        return ddp_group(gid, seed, stop_at, cfg, batch, seq, device,
+                         lighthouse.address(), compute, pg_transport=False,
+                         label="heal path step")
+
+    # three groups must meet: the survivors wait for the rejoiner, which
+    # then heals from both
+    lighthouse = LighthouseServer(
+        min_replicas=n_groups, join_timeout_ms=100, heartbeat_timeout_ms=5000
+    )
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t_start = time.perf_counter()
+    ex = ThreadPoolExecutor(max_workers=n_groups + 1)
+    try:
+        survivors_f = [ex.submit(group, g, 0, total_steps) for g in range(n_groups - 1)]
+        first = ex.submit(group, victim, 0, kill_at).result(timeout=1800)
+        log(f"group{victim} shut down after step {first['final_step']}; "
+            "restarting it from a fresh init")
+        del first["model"], first["opt"]
+        if on_card:
+            gc.collect()
+            torch.cuda.empty_cache()
+        rejoiner = ex.submit(group, victim, 12345, total_steps).result(timeout=1800)
+        survivors = [f.result(timeout=1800) for f in survivors_f]
+    finally:
+        ex.shutdown(wait=False)
+        lighthouse.shutdown()
+        for k, v in env_before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    wall = time.perf_counter() - t_start
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+    plan = {f"{p}/{v}": metrics.PLAN_VERIFY_TOTAL.labels(plane=p, verdict=v).get() - plan0[(p, v)]
+            for p, v in verdicts}
+
+    groups = survivors + [rejoiner]
+    losses = [s["loss"] for r in groups + [first] for s in r["steps"]]
+    assert all(math.isfinite(x) for x in losses), losses
+    for r in survivors:
+        assert len(r["steps"]) == total_steps and r["final_step"] == total_steps
+        assert all(s["committed"] for s in r["steps"]), "survivor step failed"
+    assert first["final_step"] == kill_at
+    assert rejoiner["final_step"] == total_steps
+    assert len(rejoiner["steps"]) == total_steps - kill_at
+    assert rejoiner["heals"], "the rejoiner did not heal"
+    heal = rejoiner["heals"][-1]
+    assert heal["at_step"] == kill_at and heal["mode"] in ("full", "delta"), heal
+    assert heal["sources"] == n_groups - 1, f"striped from {heal['sources']} sources"
+    assert plan["stripe/accept"] >= 1, plan
+    assert all(plan[f"{p}/{v}"] == 0 for p, v in verdicts if v != "accept"), plan
+    # all three groups bitwise equal: parameters and AdamW state, which
+    # lies on the survivors' devices in the rejoiner too
+    ref = groups[0]
+    ref_params = dict(ref["model"].named_parameters())
+    ref_state = [ref["opt"].state[p] for p in ref["opt"].param_groups[0]["params"]]
+    for r in groups[1:]:
+        for n, p in r["model"].named_parameters():
+            assert torch.equal(p, ref_params[n]), f"group params differ: {n}"
+        state = [r["opt"].state[p] for p in r["opt"].param_groups[0]["params"]]
+        assert len(state) == len(ref_state)
+        for got, want in zip(state, ref_state):
+            assert set(got) == set(want)
+            for k in want:
+                assert got[k].device == want[k].device, (k, got[k].device)
+                assert torch.equal(got[k], want[k]), f"AdamW {k} differs"
+    counters = [r["native_counters"] for r in survivors]
+    # fragment fetches the native data plane answered with a miss, so the
+    # Python plane served them (the flight ring records each)
+    fallbacks = [(r.get("step"), r.get("resource"))
+                 for r in flightrec.RECORDER.snapshot()
+                 if r.get("op") == "fragment.native_fallback"]
+    native_serves = sum(c["serves"] for c in counters if c)
+    if fragdata.enabled():
+        assert native_serves > 0, f"no fragment served natively: {counters}"
+        assert all(c["serve_copies"] == 0 for c in counters if c), counters
+    log(f"heal path: {total_steps} survivor steps of {n_groups - 1} groups all "
+        f"committed; group{victim} healed {heal['mode']} from {heal['sources']} "
+        f"sources and the {n_groups} groups' parameters and AdamW states are "
+        "bitwise equal")
+    encode = time_heal_encode(
+        {"model": ref["model"].state_dict(), "optim": ref["opt"].state_dict()}
+    )
+    log(f"  heal encode of one fragment: {json.dumps(encode)}")
+    heal_s = sum(heal["phases_ms"].values()) / 1e3
+    step_ms = [s["step_ms"] for r in survivors for s in r["steps"]]
+    return {
+        "heal": heal,
+        "heals": [h for r in groups for h in r["heals"]],
+        "heal_gb_per_s": heal["wire_bytes"] / 1e9 / heal_s if heal_s > 0 else None,
+        "encode": encode,
+        "data_plane": "native" if native_serves else "python",
+        "native_counters": counters,
+        "native_fallbacks": fallbacks,
+        "plan_verify": plan,
+        "survivor_step_ms": step_ms,
+        "median_step_ms": statistics.median(step_ms),
+        "rejoiner_step_ms": [s["step_ms"] for s in rejoiner["steps"]],
+        "peak_memory_gb": peak_gb,
+        "wall_s": wall,
+        "losses": losses,
+    }
+
+
+# ---------------------------------------------------------------------------
+# phase 5: quantization kernels against their twins
 # ---------------------------------------------------------------------------
 
 # the flagship DiLoCo fragments as (rows, 2048) f32 matrices: two blocks,
@@ -747,7 +956,7 @@ def check_quant_kernels() -> "dict":
 
 
 # ---------------------------------------------------------------------------
-# phase 5: the DiLoCo path
+# phase 6: the DiLoCo path
 # ---------------------------------------------------------------------------
 
 
@@ -1094,6 +1303,30 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    hsum, h_launches, h_twin_calls = drive(heal_path)
+    log(f"heal path launches {h_launches}, plain twin calls {h_twin_calls}")
+    assert all(h_launches[k] > 0 for k in ("flash_fwd", "flash_bwd_kv", "flash_bwd_q")), h_launches
+    assert all(n == 0 for n in h_twin_calls.values()), h_twin_calls
+    heal = hsum["heal"]
+    log(f"{card} | HTTP striped heal ({heal['mode']}, {heal['sources']} sources, "
+        f"{heal['changed']} of {heal['fragments']} fragments changed, "
+        f"{heal['wire_bytes']} wire bytes, {hsum['heal_gb_per_s']:.3f} GB/s): "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in heal["phases_ms"].items()))
+    pg_heal = summary["rejoiner_phases_ms"].get("heal_recv", 0.0)
+    log(f"{card} | PGTransport heal of the DDP path: heal_recv {pg_heal:.1f} ms")
+    log(f"{card} | heal data plane {hsum['data_plane']}: counters "
+        f"{json.dumps(hsum['native_counters'])}, Python-plane fallbacks "
+        f"{hsum['native_fallbacks']}; plan verify {json.dumps(hsum['plan_verify'])}")
+    log(f"{card} | heal encode of one fragment ({hsum['encode']['bytes']} B): "
+        + ", ".join(f"{k} {v['ms']:.1f} ms ({v['gb_per_s']:.3f} GB/s)"
+                    for k, v in hsum["encode"].items() if k != "bytes"))
+    log(f"{card} | heal path survivor median step {hsum['median_step_ms']:.1f} ms "
+        f"with three groups (steps {[round(x, 1) for x in hsum['survivor_step_ms']]}), "
+        f"peak memory {hsum['peak_memory_gb']} GB, phase wall {hsum['wall_s']:.1f} s")
+    log(f"heal path on {card}: " + json.dumps(hsum))
+    gc.collect()
+    torch.cuda.empty_cache()
+
     dsum, d_launches, d_twin_calls = drive(diloco_path)
     log(f"diloco path launches {d_launches}, plain twin calls {d_twin_calls}")
     assert all(
@@ -1131,12 +1364,12 @@ def main() -> int:
     checks = {}
     for part in ("max_abs", "times", "bounds", "library"):
         checks[part] = {**kernels[part], **quant[part]}
-    # launches: the DDP path's and the DiLoCo path's runs together (each
-    # counted from 0); E and F have no caller on either path
+    # launches: the DDP, heal and DiLoCo paths' runs together (each
+    # counted from 0); E and F have no caller on any of them
     record = {"kernels": [
         {
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": launches[name] + d_launches[name],
+            "launches": launches[name] + h_launches[name] + d_launches[name],
             "max_abs_err": checks["max_abs"][name],
             "ms": checks["times"][name][0],
             "plain_ms": checks["times"][name][1],

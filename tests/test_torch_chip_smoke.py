@@ -78,3 +78,27 @@ def test_refuses_without_a_card_and_outside_a_checkout(tmp_path):
         tmp_path, env,
     )
     assert out.returncode != 0 and "not importable" in out.stderr
+
+
+def test_heal_path_rehearsal_on_cpu():
+    """The heal phase at a tiny size: three groups on the Manager's default
+    HTTPTransport, a kill after step 3 and a striped heal from the two
+    survivors; the path asserts commits, two sources, bitwise equal groups
+    and no rejected plan."""
+    cfg = tf.TransformerConfig(
+        vocab_size=256, d_model=64, n_heads=2, n_kv_heads=1, d_ff=128,
+        n_layers=1, max_seq_len=128, dtype=torch.float32, remat=False,
+        attn_impl="flash",
+    )
+    before = fa.flash_fwd_plain.calls
+    summary = chip_smoke.heal_path(cfg, batch=1, seq=128, device="cpu")
+    heal = summary["heal"]
+    assert heal["sources"] == 2 and heal["at_step"] == 3
+    assert heal["wire_bytes"] > 0 and heal["changed"] == heal["fragments"]
+    assert set(heal["phases_ms"]) == set(chip_smoke.HEAL_PHASES)
+    assert summary["plan_verify"]["stripe/accept"] >= 1
+    assert summary["data_plane"] == "native"
+    assert {"host_copy", "serialize", "sha256_hashlib", "bytes"} <= set(summary["encode"])
+    # 2 survivors x 5 + 3 before the kill + 2 after it
+    assert len(summary["losses"]) == 15
+    assert fa.flash_fwd_plain.calls - before == 15

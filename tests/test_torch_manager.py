@@ -1,5 +1,7 @@
 """The whole slice on the CPU: FT-DDP of the tiny transformer in both
-packages, and live heal over the port's PGTransport.
+packages, live heal over the port's PGTransport, and live heal over its
+default HTTPTransport (striped across two sources; the two heal golden
+fixtures replayed with torch tensors in place of numpy arrays).
 
 Each replica group is a thread with its own Manager, ProcessGroupTCP and
 optimizer wrapper on one native lighthouse (the threads-as-replicas harness
@@ -70,8 +72,10 @@ def _run(replicas, fn):
         return [f.result(timeout=120) for f in futures]
 
 
-def _port_group(replica, lighthouse_addr, model, min_replica_size):
-    """One port replica group: returns (manager, optimizer wrapper, ddp)."""
+def _port_group(replica, lighthouse_addr, model, min_replica_size, transport="pg"):
+    """One port replica group: returns (manager, optimizer wrapper, ddp).
+    ``transport="pg"`` heals over PGTransport; ``None`` leaves the Manager
+    its default transport."""
     opt = torch.optim.AdamW(
         model.parameters(), lr=LR, betas=(0.9, 0.999), eps=EPS, weight_decay=WD
     )
@@ -97,7 +101,7 @@ def _port_group(replica, lighthouse_addr, model, min_replica_size):
         checkpoint_transport=PGTransport(
             pg, timeout=20.0,
             state_dict_fn=lambda: holder["m"]._manager_state_dict(),
-        ),
+        ) if transport == "pg" else None,
         timeout=20.0,
         quorum_timeout=20.0,
     )
@@ -339,3 +343,214 @@ def test_serialization_round_trips_tensors_and_receives_in_place():
     for i, target in into.items():
         assert got[i] is target
     assert torch.equal(live["w"], state["w"]) and torch.equal(live["h"], state["h"])
+
+
+# ---------------------------------------------------------------------------
+# heal over the default HTTPTransport
+# ---------------------------------------------------------------------------
+
+
+def test_manager_without_a_transport_builds_http_transport():
+    from torchft_tpu_torch import HTTPTransport
+
+    lh = LighthouseServer(min_replicas=1, join_timeout_ms=100)
+    m = Manager(
+        pg=ProcessGroupTCP(timeout=10.0), min_replica_size=1,
+        load_state_dict=lambda sd: None, state_dict=lambda: {},
+        lighthouse_addr=lh.address(), replica_id="default_transport",
+        group_rank=0, group_world_size=1, timeout=7.0,
+    )
+    try:
+        t = m._checkpoint_transport
+        assert isinstance(t, HTTPTransport) and t.supports_striped_heal is True
+        assert t._lock_timeout == 7.0
+        assert t.metadata().startswith("http://")
+    finally:
+        m.shutdown()
+        lh.shutdown()
+
+
+def test_three_groups_kill_and_rejoin_heal_striped_from_two_sources(tree):
+    """Group 2 dies after step 2 and restarts from a different init; the
+    lighthouse waits for all three groups, so the rejoiner heals from both
+    survivors over the default transport, and all three end bitwise equal,
+    AdamW state included."""
+    steps, kill_after = 4, 2
+    killed = threading.Event()
+
+    def replica_loop(replica):
+        attempt = 0
+        while True:
+            if attempt == 0:
+                model = convert.params_from_jax(tree, TCFG, device="cpu")
+            else:
+                model = ttf.init_params(torch.Generator().manual_seed(99), TCFG, "cpu")
+            manager, optim, ddp = _port_group(replica, lh.address(), model, 2, transport=None)
+            try:
+                while manager.current_step() < steps:
+                    step = manager.current_step()
+                    if replica == 2 and step == kill_after and not killed.is_set():
+                        killed.set()
+                        break
+                    assert _port_step(model, manager, optim, ddp, _tokens(replica, step))
+                else:
+                    opt = optim.optimizer
+                    adam = [
+                        {k: v.clone() for k, v in opt.state[p].items()}
+                        for p in opt.param_groups[0]["params"]
+                    ]
+                    return attempt, {
+                        k: v.clone() for k, v in model.state_dict().items()
+                    }, adam, manager.heal_info()
+            finally:
+                manager.shutdown()
+            attempt += 1
+
+    lh = LighthouseServer(min_replicas=3, join_timeout_ms=100, heartbeat_timeout_ms=1000)
+    try:
+        out = _run([0, 1, 2], replica_loop)
+    finally:
+        lh.shutdown()
+    assert [o[0] for o in out] == [0, 0, 1]
+    info = out[2][3]
+    assert info["sources"] == 2 and info["mode"] == "delta"
+    assert info["changed"] == info["fragments"]  # a fresh init shares nothing
+    assert set(info["phases"]) == {"heal_manifest", "heal_diff", "heal_wire", "heal_decode"}
+    for _, sd, adam, _ in out[1:]:
+        for name in sd:
+            assert torch.equal(sd[name], out[0][1][name]), name
+        for got, want in zip(adam, out[0][2]):
+            for k in want:
+                assert torch.equal(got[k], want[k]), k
+
+
+FIXTURES = __import__("pathlib").Path(__file__).parent / "fixtures"
+
+
+def _golden_manager(name, replica_id, lighthouse_addr, load_state_dict, state_dict):
+    return Manager(
+        pg=ProcessGroupTCP(timeout=10.0), min_replica_size=2,
+        load_state_dict=load_state_dict, state_dict=state_dict,
+        lighthouse_addr=lighthouse_addr, replica_id=f"{name}_{replica_id}",
+        group_rank=0, group_world_size=1, use_async_quorum=False,
+        timeout=20.0, quorum_timeout=20.0,
+    )
+
+
+def _recovery_replica(replica_id, lighthouse_addr):
+    """tests/test_golden_fixtures.py's failure-recovery replica, on torch
+    tensors: momentum SGD, killed by the chaos layer and healed live."""
+    from torchft_tpu_torch.utils import faults
+    from torchft_tpu_torch.utils.faults import InjectedFault
+
+    history = []
+    for _attempt in range(3):
+        params = {"w": torch.zeros(4)}
+        momentum = {"w": torch.zeros(4)}
+
+        def load_state_dict(sd):
+            params["w"] = sd["params"]["w"].clone()
+            momentum["w"] = sd["momentum"]["w"].clone()
+
+        def state_dict():
+            return {"params": {"w": params["w"].clone()},
+                    "momentum": {"w": momentum["w"].clone()}}
+
+        manager = _golden_manager("golden_fr", replica_id, lighthouse_addr,
+                                  load_state_dict, state_dict)
+        try:
+            while manager.current_step() < 5:
+                step = manager.current_step()
+                faults.check("train.step", replica=f"golden_fr_{replica_id}", step=step)
+                manager.start_quorum()
+                grads = {"w": torch.full((4,), float(step + 1)) * (1.0 + 0.5 * replica_id)}
+                avg = manager.allreduce(grads).wait(timeout=30)
+                if manager.should_commit():
+                    momentum["w"] = 0.9 * momentum["w"] + avg["w"]
+                    params["w"] = params["w"] - 0.1 * momentum["w"]
+                    history.append({
+                        "step": manager.current_step(),
+                        "w": [float(x) for x in params["w"]],
+                        "momentum": [float(x) for x in momentum["w"]],
+                    })
+            return history
+        except InjectedFault:
+            continue
+        finally:
+            manager.shutdown()
+    raise RuntimeError(f"replica {replica_id} exhausted attempts")
+
+
+def _delta_heal_replica(replica_id, lighthouse_addr):
+    """tests/test_golden_fixtures.py's delta-heal replica, on torch
+    tensors: a transient crash keeps the parameters but tears one leaf,
+    and the rejoin fetches only the fragments whose digest moved."""
+    from torchft_tpu_torch.utils import faults
+    from torchft_tpu_torch.utils.faults import InjectedFault
+
+    params = {f"w{i}": torch.zeros(16) for i in range(6)}
+    history = []
+    for _attempt in range(3):
+
+        def load_state_dict(sd):
+            for k in params:
+                params[k] = sd["params"][k].clone()
+
+        def state_dict():
+            return {"params": {k: v.clone() for k, v in params.items()}}
+
+        manager = _golden_manager("golden_dh", replica_id, lighthouse_addr,
+                                  load_state_dict, state_dict)
+        try:
+            while manager.current_step() < 5:
+                step = manager.current_step()
+                faults.check("train.step", replica=f"golden_dh_{replica_id}", step=step)
+                manager.start_quorum()
+                grads = {k: torch.full((16,), float(step + 1) * (i + 1))
+                         for i, k in enumerate(params)}
+                avg = manager.allreduce(grads).wait(timeout=30)
+                if manager.should_commit():
+                    for k in params:
+                        params[k] = params[k] - torch.tensor(0.1) * avg[k]
+                    history.append({
+                        "step": manager.current_step(),
+                        "sums": {k: float(params[k].double().sum()) for k in params},
+                    })
+            return history
+        except InjectedFault:
+            params["w3"] = torch.zeros(16)
+            continue
+        finally:
+            manager.shutdown()
+    raise RuntimeError(f"replica {replica_id} exhausted attempts")
+
+
+@pytest.mark.parametrize("fixture", ["failure_recovery", "delta_heal"])
+def test_heal_golden_fixture_replays_on_the_default_transport(fixture):
+    import json
+
+    from torchft_tpu_torch.utils import faults
+    from torchft_tpu_torch.utils import metrics as tmetrics
+    from torchft_tpu_torch.utils.faults import FaultRule
+
+    prefix, fn = {
+        "failure_recovery": ("golden_fr", _recovery_replica),
+        "delta_heal": ("golden_dh", _delta_heal_replica),
+    }[fixture]
+    golden = json.loads((FIXTURES / f"{fixture}.json").read_text())
+    faults.FAULTS.configure([FaultRule(
+        site="train.step", replica=f"{prefix}_1", step=golden["kill_step"],
+    )])
+    delta_before = tmetrics.HEAL_WIRE_BYTES.labels(mode="delta").get()
+    lh = LighthouseServer(min_replicas=2, join_timeout_ms=100, heartbeat_timeout_ms=1000)
+    try:
+        histories = _run([0, 1], lambda r: fn(r, lh.address()))
+        assert faults.FAULTS.injected() == 1
+    finally:
+        faults.FAULTS.configure([])
+        lh.shutdown()
+    assert {f"replica_{i}": h for i, h in enumerate(histories)} == golden["history"]
+    if fixture == "delta_heal":
+        assert int(tmetrics.HEAL_CHANGED_FRAGMENTS.get()) == golden["changed_fragments"] == 3
+        delta_bytes = tmetrics.HEAL_WIRE_BYTES.labels(mode="delta").get() - delta_before
+        assert 0 < delta_bytes < 6 * 16 * 4 + 2048

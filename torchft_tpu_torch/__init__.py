@@ -11,6 +11,7 @@ copies of the modules it shares with the JAX package.  Entry points run on
 the card (``device="cuda"``) unless the caller asks for the CPU.
 """
 
+from torchft_tpu_torch.checkpointing.http_transport import HTTPTransport
 from torchft_tpu_torch.checkpointing.pg_transport import PGTransport
 from torchft_tpu_torch.ddp import DistributedDataParallel, module_grads
 from torchft_tpu_torch.manager import Manager, WorldSizeMode
@@ -26,6 +27,7 @@ from torchft_tpu_torch.parallel.process_group import (
 __all__ = [
     "DistributedDataParallel",
     "ErrorSwallowingProcessGroupWrapper",
+    "HTTPTransport",
     "ManagedProcessGroup",
     "Manager",
     "OptimizerWrapper",

@@ -13,11 +13,16 @@ What differs from the JAX package:
   back to the device its input leaf came from;
 - the allreduce zero-fills non-participants and divides by the live
   participant count (reference manager.py:416-417,447-454);
-- the checkpoint transport must be passed in: the HTTP heal plane is not
-  ported yet (pass ``PGTransport`` over this Manager's process group);
 - not ported yet, and therefore absent: the durable fragment store spill and
-  cold restore, ``attach_layout``, ``attach_weight_publisher`` and striped
-  heal.
+  cold restore, ``attach_layout`` and ``attach_weight_publisher``.
+
+Heal: the default transport is ``HTTPTransport``.  With
+``TORCHFT_HEAL_STREAM`` (on by default) a source stages its state as a
+cut-through fragment stream and a healer stripes the fragments across
+every max-step peer (``TORCHFT_HEAL_SOURCES``), or fetches only the
+fragments whose digest moved against its own state (``TORCHFT_HEAL_DELTA``),
+decoding into its existing tensors.  ``PGTransport`` still works when
+passed in.
 
 Env knobs (parity with reference manager.py:76-89):
 ``TORCHFT_LIGHTHOUSE`` (a single ``host:port`` or the coordination-plane
@@ -53,6 +58,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from torchft_tpu_torch.checkpointing import provenance as provenance
 from torchft_tpu_torch.checkpointing.transport import CheckpointTransport
 from torchft_tpu_torch.coordination import ManagerClient, ManagerServer, StoreClient, StoreServer
 from torchft_tpu_torch.parallel.process_group import (
@@ -66,7 +72,7 @@ from torchft_tpu_torch.utils import flightrecorder as flightrec
 from torchft_tpu_torch.utils import linkstats as linkstats
 from torchft_tpu_torch.utils import metrics as metrics
 from torchft_tpu_torch.utils import tracing as tracing
-from torchft_tpu_torch.utils.env import env_float, env_int, env_str
+from torchft_tpu_torch.utils.env import env_bool, env_float, env_int, env_str
 from torchft_tpu_torch.utils.logging import ReplicaLogger, log_event
 from torchft_tpu_torch.utils.pytree import tree_flatten, tree_unflatten
 from torchft_tpu_torch.utils.retry import RetryPolicy
@@ -158,8 +164,9 @@ class Manager:
         load_state_dict / state_dict: callables for the user training state
             (pytree); more can be registered via register_state_dict_fn.
         use_async_quorum: overlap quorum with the forward pass.
-        checkpoint_transport: transport for live healing; required until the
-            HTTP heal plane is ported (``PGTransport`` over ``pg`` works).
+        checkpoint_transport: transport for live healing; defaults to
+            ``HTTPTransport(timeout=timeout)`` (``PGTransport`` over ``pg``
+            works too).
         store_addr: address of this replica group's rendezvous store; if
             None and group_rank == 0, an in-process StoreServer is started.
         replica_id: stable id of this replica group; a ``:uuid`` suffix is
@@ -228,10 +235,9 @@ class Manager:
             self.register_state_dict_fn("default", load_state_dict, state_dict)
 
         if checkpoint_transport is None:
-            raise ValueError(
-                "checkpoint_transport is required: the HTTP heal plane is not "
-                "ported yet; pass PGTransport(pg)"
-            )
+            from torchft_tpu_torch.checkpointing.http_transport import HTTPTransport
+
+            checkpoint_transport = HTTPTransport(timeout=self._timeout)
         self._checkpoint_transport: CheckpointTransport[Any] = checkpoint_transport
 
         self._executor = ThreadPoolExecutor(
@@ -243,6 +249,8 @@ class Manager:
         self._pending_state_dict: "Optional[Dict[str, Any]]" = None
         self._errored: "Optional[Exception]" = None
         self._healing = False
+        # the last striped heal's info (mode, sources, fragments, phases)
+        self._heal_info: "Dict[str, Any]" = {}
         self._recovery_future: "Optional[concurrent.futures.Future[None]]" = None
         self._participating_replica_rank: "Optional[int]" = None
         self._participating_replica_world_size: int = 0
@@ -612,6 +620,65 @@ class Manager:
         if not allow_heal:
             return
 
+        # Striped heal: stream-stage fragments + stripe the receive across
+        # every max-step peer when the transport carries the fragment
+        # protocol (the flag must be literally True so duck-typed test
+        # doubles keep the legacy path).
+        streamed_heal = (
+            env_bool("TORCHFT_HEAL_STREAM", True)
+            and getattr(
+                self._checkpoint_transport, "supports_striped_heal", False
+            )
+            is True
+        )
+
+        # Proactive stripe-source staging: a max-step participant can
+        # tell healers exist this round (the max-step cohort is smaller
+        # than the quorum) and stages its own fragment stream so healers
+        # aggregate up-to-date uplinks beyond the assigned primary's.
+        # Bounded by the SAME pure quorum math the healer's source
+        # resolution applies: every healer stripes over the first
+        # TORCHFT_HEAL_SOURCES max-step roster entries (minus its
+        # primary), so only those participants stage.  Degrade-only: a
+        # failed proactive stage merely shrinks the healer's stripe back
+        # toward the primary.
+        if (
+            streamed_heal
+            and not quorum.recover_dst_replica_ranks
+            and not quorum.heal
+            and quorum.max_replica_rank is not None
+            and quorum.max_world_size < quorum.replica_world_size
+            and self._in_stripe_source_set(quorum)
+        ):
+            t_send = time.perf_counter()
+            try:
+                with record_function(
+                    "torchft::manager::_checkpoint_transport::send_checkpoint"
+                ):
+                    self._checkpoint_transport.send_checkpoint_streamed(
+                        dst_ranks=[],
+                        step=quorum.max_step,
+                        state_dict=self._manager_state_dict(),
+                        timeout=self._timeout,
+                    )
+                self._record_phase("heal_send", time.perf_counter() - t_send)
+                log_event(
+                    "heal",
+                    "staged stripe-source checkpoint for healing peers",
+                    job_id=env_str("JOB_ID", "unknown"),
+                    replica_id=self._replica_id,
+                    rank=self._group_rank,
+                    quorum_id=quorum.quorum_id,
+                    step=quorum.max_step,
+                    direction="send",
+                    proactive=True,
+                )
+            except Exception as e:  # noqa: BLE001 - degrade, never wedge
+                self._logger.warning(
+                    f"proactive stripe-source staging failed "
+                    f"(healers fall back to fewer sources): {e}"
+                )
+
         try:
             if quorum.recover_dst_replica_ranks:
                 faults.check(
@@ -624,12 +691,20 @@ class Manager:
                 with record_function(
                     "torchft::manager::_checkpoint_transport::send_checkpoint"
                 ):
-                    self._checkpoint_transport.send_checkpoint(
-                        dst_ranks=quorum.recover_dst_replica_ranks,
-                        step=quorum.max_step,
-                        state_dict=self._manager_state_dict(),
-                        timeout=self._timeout,
-                    )
+                    if streamed_heal:
+                        self._checkpoint_transport.send_checkpoint_streamed(
+                            dst_ranks=quorum.recover_dst_replica_ranks,
+                            step=quorum.max_step,
+                            state_dict=self._manager_state_dict(),
+                            timeout=self._timeout,
+                        )
+                    else:
+                        self._checkpoint_transport.send_checkpoint(
+                            dst_ranks=quorum.recover_dst_replica_ranks,
+                            step=quorum.max_step,
+                            state_dict=self._manager_state_dict(),
+                            timeout=self._timeout,
+                        )
                 self._record_phase("heal_send", time.perf_counter() - t_send)
                 metrics.HEALS.labels(
                     replica_id=self._metric_replica_id, direction="send"
@@ -667,22 +742,62 @@ class Manager:
                 assert (
                     quorum.recover_src_replica_rank is not None
                 ), "must have a recover rank when healing"
+                heal_info: "Dict[str, Any]" = {}
                 with record_function(
                     "torchft::manager::_checkpoint_transport::recv_checkpoint"
                 ):
-                    self._pending_state_dict = (
-                        self._checkpoint_transport.recv_checkpoint(
-                            src_rank=quorum.recover_src_replica_rank,
-                            metadata=checkpoint_metadata,
+                    if streamed_heal:
+                        sources = [checkpoint_metadata]
+                        # Stripe only when genuinely BEHIND the cohort:
+                        # an init-sync force-recover round has every
+                        # replica at max_step with unsynchronized state —
+                        # only the primary's copy is truth there.
+                        if quorum.max_replica_rank is None:
+                            sources += self._resolve_stripe_sources(
+                                quorum, checkpoint_metadata
+                            )
+                        (
+                            self._pending_state_dict,
+                            heal_info,
+                        ) = self._checkpoint_transport.recv_checkpoint_striped(
+                            sources,
                             step=quorum.max_step,
                             timeout=self._timeout,
+                            local_state_fn=self._manager_state_dict,
                         )
-                    )
+                    else:
+                        self._pending_state_dict = (
+                            self._checkpoint_transport.recv_checkpoint(
+                                src_rank=quorum.recover_src_replica_rank,
+                                metadata=checkpoint_metadata,
+                                step=quorum.max_step,
+                                timeout=self._timeout,
+                            )
+                        )
+                self._heal_info = heal_info
                 self.load_state_dict(self._pending_state_dict["torchft"])
                 # loading the torchft dict restores the step; set it anyway
                 # to make reasoning (and tests) simpler
                 self._step = quorum.max_step
-                self._record_phase("heal_recv", time.perf_counter() - t_recv)
+                # Phase split: the striped path records its four
+                # sub-phases plus the residue (metadata RPC, source
+                # resolution, reassembly) under the legacy heal_recv
+                # name, so ledger sums stay exact and never double-count
+                # a split phase against its umbrella.
+                heal_phases = heal_info.get("phases") or {}
+                for name in ("heal_manifest", "heal_diff", "heal_wire",
+                             "heal_decode"):
+                    if name in heal_phases:
+                        self._record_phase(name, heal_phases[name])
+                self._record_phase(
+                    "heal_recv",
+                    max(
+                        time.perf_counter()
+                        - t_recv
+                        - sum(heal_phases.values()),
+                        0.0,
+                    ),
+                )
                 metrics.HEALS.labels(
                     replica_id=self._metric_replica_id, direction="recv"
                 ).inc()
@@ -696,11 +811,88 @@ class Manager:
                     step=quorum.max_step,
                     direction="recv",
                     src_rank=quorum.recover_src_replica_rank,
-                    mode="legacy",
+                    mode=heal_info.get("mode", "legacy"),
+                    stripe_sources=heal_info.get("sources", 1),
+                    changed_fragments=heal_info.get("changed"),
                 )
         except Exception as e:  # noqa: BLE001 - captured into the protocol
             self._logger.exception(f"got exception in recovery: {e}")
             self.report_error(e)
+
+    def _in_stripe_source_set(self, quorum: Any) -> bool:
+        """True when this replica is among the first
+        ``TORCHFT_HEAL_SOURCES`` max-step participants in roster order —
+        the superset every healer's ``_resolve_stripe_sources`` pick
+        (first ``max_sources - 1`` entries after excluding its primary)
+        can reach, computed from the same roster on every peer by the
+        plan layer's one copy of the first-K math."""
+        from torchft_tpu_torch.analysis.plan_ir import stripe_source_cohort
+
+        max_sources = env_int("TORCHFT_HEAL_SOURCES", 4, minimum=1)
+        return self._replica_id in stripe_source_cohort(
+            quorum.participants, quorum.max_step, max_sources
+        )
+
+    def _resolve_stripe_sources(
+        self, quorum: Any, primary_metadata: str
+    ) -> "List[str]":
+        """Transport addresses of the max-step quorum peers beyond the
+        assigned primary — the striped heal's extra sources.
+
+        The participants roster (replica-rank order) carries each peer's
+        manager address and step; every peer at ``max_step`` holds
+        bitwise-replicated state, so its fragments must hash to the
+        primary's manifest digests.  Each candidate's checkpoint
+        transport address resolves through its manager's
+        ``checkpoint_metadata`` RPC, in parallel and best-effort: an
+        unreachable peer just shrinks the stripe.  Bounded by
+        ``TORCHFT_HEAL_SOURCES`` (total sources including the primary);
+        the candidate pick is the plan layer's
+        :func:`~torchft_tpu_torch.analysis.plan_ir.stripe_roster`."""
+        from torchft_tpu_torch.analysis.plan_ir import stripe_roster
+
+        max_sources = env_int("TORCHFT_HEAL_SOURCES", 4, minimum=1)
+        candidates = stripe_roster(
+            quorum.participants,
+            quorum.max_step,
+            quorum.recover_src_replica_rank,
+            max_sources,
+        )
+        if not candidates:
+            return []
+
+        def _resolve(addr: str) -> "Optional[str]":
+            client = ManagerClient(
+                addr, connect_timeout=self._connect_timeout
+            )
+            try:
+                return client._checkpoint_metadata(
+                    self._group_rank, timeout=self._connect_timeout
+                )
+            except Exception as e:  # noqa: BLE001 - best-effort stripe
+                self._logger.info(
+                    f"stripe source {addr} unresolvable ({e}); striping "
+                    f"without it"
+                )
+                return None
+            finally:
+                client.close()
+
+        with ThreadPoolExecutor(
+            max_workers=min(len(candidates), 4),
+            thread_name_prefix="tft_stripe_resolve",
+        ) as pool:
+            resolved = list(pool.map(_resolve, candidates))
+        return [
+            m for m in resolved if m and m != primary_metadata
+        ]
+
+    def heal_info(self) -> "Dict[str, Any]":
+        """The last striped heal's info: ``mode`` (full/delta/legacy),
+        ``sources``, ``fragments``, ``changed``, ``wire_bytes``,
+        ``failovers``, ``sources_used`` and the ``phases`` split; empty
+        before the first heal or after a heal over another transport."""
+        return dict(self._heal_info)
 
     def _apply_pending_state_dict(self) -> None:
         assert self._healing, "must be in healing state"
@@ -1161,6 +1353,17 @@ class Manager:
                 server.report_links(digest)
         except Exception:  # noqa: BLE001 - telemetry must not fail the step
             logger.debug("link digest report failed", exc_info=True)
+        # Same piggyback channel for the fragment provenance digest: hand
+        # the bounded version-vector digest to the native heartbeat loop,
+        # which owns consumed-on-send/restore.
+        fdigest = None
+        try:
+            fdigest = provenance.PROV.maybe_digest(socket.gethostname())
+            if fdigest is not None:
+                server.report_fragments(fdigest)
+        except Exception:  # noqa: BLE001 - telemetry must not fail the step
+            provenance.PROV.restore_digest(fdigest)
+            logger.debug("fragment digest report failed", exc_info=True)
 
     def current_step(self) -> int:
         return self._step

@@ -7,10 +7,9 @@ differs: inputs are torch tensors (CPU or CUDA) or numpy arrays, results
 come back in each leaf's dtype (a tensor leaf as a CPU tensor, a numpy leaf
 as a numpy array; bf16 rounded to nearest even from the f32 result, as
 ``ml_dtypes`` does in the JAX package), the device quantize is kernel D in
-CUDA (``ops/pallas_quant.py``), and the hierarchical plan's live verifier
-(``TORCHFT_PLAN_VERIFY``) is not ported yet: with the variable set, one
-warning is logged and the plan runs unchecked, as a verifier that only
-observes would let it.
+CUDA (``ops/pallas_quant.py``).  With ``TORCHFT_PLAN_VERIFY`` set, the
+hierarchical plan is checked live by ``analysis/plan_verify``, as in the
+JAX package.
 
 Analog of the reference's quantized collectives
 (reference: torchft/collectives.py:159-415): quantize per-rank row-slices,
@@ -111,7 +110,7 @@ from torchft_tpu_torch.utils import lockcheck as _lockcheck
 from torchft_tpu_torch.utils import metrics as _metrics
 from torchft_tpu_torch.utils import tracing as _tracing
 from torchft_tpu_torch.utils.bufpool import POOL as _POOL
-from torchft_tpu_torch.utils.env import env_bool, env_int
+from torchft_tpu_torch.utils.env import env_int
 
 logger = logging.getLogger(__name__)
 
@@ -1324,18 +1323,6 @@ def _copy_rows(
         torch.from_numpy(pl).copy_(payload_dev[g0 : g0 + n])
 
 
-_plan_verify_warned = threading.Event()
-
-
-def _warn_plan_verify() -> None:
-    if not _plan_verify_warned.is_set():
-        _plan_verify_warned.set()
-        logger.warning(
-            "TORCHFT_PLAN_VERIFY is set, but the live plan check is not "
-            "ported yet: hierarchical plans run unchecked"
-        )
-
-
 def _attach_accounting(
     work: Work, pipe: "Optional[_ChunkPipeline]", wire_bytes: int,
     unquantized: int, wire_dtype: str, device_quantized: bool = False,
@@ -1596,10 +1583,17 @@ def _allreduce_hier(
     slice_rows = rows // m
     chunks = _chunk_bounds(slice_rows, _resolve_chunk_rows(slice_rows, cols))
     plan = _topo.synthesize_plan(topo, rank)
-    # TORCHFT_PLAN_VERIFY: the JAX package validates the fleet-wide plan
-    # here; its verifier only observes, and it is not ported yet
-    if env_bool("TORCHFT_PLAN_VERIFY", False):
-        _warn_plan_verify()
+    # TORCHFT_PLAN_VERIFY: validate the fleet-wide plan this rank's
+    # schedule is a slice of, at the one build point every rank passes.
+    from torchft_tpu_torch.analysis import plan_verify as _pv
+
+    if _pv.enabled():
+        from torchft_tpu_torch.analysis import plan_ir as _pir
+
+        _pv.check_live(
+            _pir.reduction_ir(topo, wire=wire_dtype,
+                              slice_nbytes=slice_rows * cols)
+        )
     # The full output matrix escapes to the caller as views — never pooled.
     full_mat = np.empty((rows, cols), dtype=np.float32)
     pipe = _HierPipeline(
