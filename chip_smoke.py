@@ -65,6 +65,25 @@ Phases, any failure exits non-zero:
    backup and outer state at the end, each sync's wire bytes below a
    3.5th of the f32 bytes, and D, A, B and C must have launched (D's twin
    never).
+7. Cold restore: two flagship groups with AdamW on the default
+   HTTPTransport spill every committed step to a durable store under a
+   fresh temporary ``TORCHFT_STORE_DIR`` (``TORCHFT_STORE_SPILL_S=0``,
+   ``TORCHFT_STORE_VERSIONS=1``: about 11 GB of disk, removed at the end),
+   train 4 steps and stop together; ``shutdown`` drains the last version.
+   Two fresh groups from another init seed must cold-restore step 4 from
+   both disks, with parameters and AdamW state bitwise equal (by sha256 per
+   leaf) to the stopped fleet's and each on the device it trained on, then
+   train one more step.  Prints each spill's snapshot, encode and write
+   times, the bytes on disk, the versions skipped, and each restore's wall,
+   phases, bytes, GB/s and stripe sources beside PGTransport's heal.
+8. Reshard: four flagship groups under a memory ceiling of half the
+   sharded bytes bootstrap at layout (2, 2, 1); the sharded state is a flat
+   f32 copy of the parameters on the card, updated each committed step by
+   ``update_sharded`` with ``owned -= lr * avg_grad[interval]``.  Group 3
+   stops before step 3; the survivors must re-plan to (1, 3, 1), re-shard
+   live and commit one epoch at one step, and their shards joined must
+   equal bitwise the full vector group 0 keeps.  Prints staged and fetched
+   bytes, stage-and-fetch and commit ms, step times and peak memory.
 
 The last two lines are the kernels' JSON record and the device JSON.
 """
@@ -444,15 +463,19 @@ HEAL_PHASES = ("heal_manifest", "heal_diff", "heal_wire", "heal_decode", "heal_r
 
 def ddp_group(gid: int, seed: int, stop_at: int, cfg, batch: int, seq: int,
               device: str, lighthouse_addr: str, compute, pg_transport: bool,
-              label: str = "step") -> dict:
-    """One FT-DDP replica group of phases 3 and 4, run as a thread: the
+              label: str = "step", on_first_quorum=None) -> dict:
+    """One FT-DDP replica group of phases 3, 4 and 7, run as a thread: the
     flagship (``cfg``) with AdamW under a Manager that heals over
     PGTransport, or over its default HTTPTransport, trained to step
     ``stop_at``.  Returns its steps, the heals it received
     (``Manager.heal_info()`` with the step's heal phases), its phase times,
-    its model and optimizer, and its transport's native data-plane
-    counters.  ``compute`` is a lock the groups take turns on, so only one
-    group's activations are live at a time."""
+    its model and optimizer, its transport's native data-plane counters
+    and, with ``TORCHFT_STORE_DIR`` set, its durable store's last spill
+    (``Manager.store_info()`` after the shutdown drained it).
+    ``compute`` is a lock the groups take turns on, so only one group's
+    activations are live at a time.  ``on_first_quorum(model, opt,
+    manager)`` runs once, after the first quorum (and any heal or cold
+    restore it brought) and before the first step's compute."""
     import torch
 
     from torchft_tpu_torch import (
@@ -507,6 +530,13 @@ def ddp_group(gid: int, seed: int, stop_at: int, cfg, batch: int, seq: int,
             optim.zero_grad()  # quorum (and heal, for a rejoiner)
             t1 = time.perf_counter()
             step = manager.current_step()  # a heal moves it
+            if on_first_quorum is not None and not steps:
+                t_hook = time.perf_counter()
+                with compute:
+                    on_first_quorum(model, opt, manager)
+                # the hook's time is no part of the step
+                t_hook = time.perf_counter() - t_hook
+                t0, t1 = t0 + t_hook, t1 + t_hook
             tokens = torch.randint(
                 0, cfg.vocab_size, (batch, seq),
                 generator=torch.Generator().manual_seed(1000 * gid + step),
@@ -528,24 +558,32 @@ def ddp_group(gid: int, seed: int, stop_at: int, cfg, batch: int, seq: int,
                 "quorum_ms": (t1 - t0) * 1e3, "compute_ms": (t2 - t1) * 1e3,
                 "sync_ms": (t3 - t2) * 1e3, "phases_ms": delta,
             })
+            store = manager.store_info()
+            if "version" in store:
+                steps[-1]["store"] = store
             log(f"  {label} {json.dumps(steps[-1])}")
             # a striped heal's sub-phases can cover it whole, leaving the
             # heal_recv residue at 0: any heal phase marks a heal
             if any(k in delta for k in HEAL_PHASES):
                 info = manager.heal_info()
-                info.pop("phases", None)
+                # a cold restore records only heal_recv: keep the split
+                # its striped receive measured
+                split = info.pop("phases", None) or {}
+                if "restore" in info:
+                    info["split_ms"] = {k: v * 1e3 for k, v in split.items()}
                 info["phases_ms"] = {k: delta.get(k, 0.0) for k in HEAL_PHASES}
                 info["at_step"] = step
                 heals.append(info)
                 log(f"  group{gid} healed: {json.dumps(info)}")
         native = getattr(manager._checkpoint_transport, "_frag_native", None)
-        return {
-            "steps": steps, "heals": heals, "phases": manager.phase_times(),
-            "final_step": manager.current_step(), "model": model, "opt": opt,
-            "native_counters": native.counters() if native is not None else None,
-        }
+        counters = native.counters() if native is not None else None
     finally:
         manager.shutdown()
+    return {
+        "steps": steps, "heals": heals, "phases": manager.phase_times(),
+        "final_step": manager.current_step(), "model": model, "opt": opt,
+        "native_counters": counters, "store": manager.store_info(),
+    }
 
 
 def main_path(cfg=None, batch: int = 8, seq: int = 1024, device: str = "cuda") -> "dict":
@@ -794,6 +832,375 @@ def heal_path(cfg=None, batch: int = 8, seq: int = 1024, device: str = "cuda") -
         "peak_memory_gb": peak_gb,
         "wall_s": wall,
         "losses": losses,
+    }
+
+
+# ---------------------------------------------------------------------------
+# phase 7: whole-fleet cold restore from the durable store
+# ---------------------------------------------------------------------------
+
+def _digest(t) -> str:
+    import hashlib
+
+    import torch
+
+    host = t.detach().cpu().contiguous().reshape(-1).view(torch.uint8)
+    return f"{t.dtype}{tuple(t.shape)}:" + hashlib.sha256(host.numpy()).hexdigest()
+
+
+def state_digests(model, opt) -> "dict":
+    """sha256 of each parameter's and each AdamW state tensor's bytes (with
+    its dtype and shape), and the device each lives on, by name."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    leaves = dict(model.named_parameters())
+    for p in opt.param_groups[0]["params"]:
+        for k, v in opt.state[p].items():
+            leaves[f"{names[id(p)]}/{k}"] = v
+    return {n: (_digest(t), str(t.device)) for n, t in leaves.items()}
+
+
+def _disk_bytes(root: str) -> int:
+    return sum(
+        os.path.getsize(os.path.join(d, f))
+        for d, _dirs, files in os.walk(root) for f in files
+    )
+
+
+def cold_restore_path(cfg=None, batch: int = 8, seq: int = 1024,
+                      device: str = "cuda", steps: int = 4) -> "dict":
+    """Phase 7: two flagship groups with AdamW on the default HTTPTransport
+    spill every committed step to a durable store under a fresh temporary
+    ``TORCHFT_STORE_DIR`` (``TORCHFT_STORE_SPILL_S=0``, one version kept),
+    train ``steps`` steps and stop, the whole fleet at once (``shutdown``
+    drains the last version).  Two fresh groups from another init seed
+    must cold-restore the last committed step from both disks, bitwise
+    (parameters and AdamW state, each on the device it trained on), then
+    train one more step.  ``cfg``/``batch``/``seq``/``device`` let a CPU
+    rehearsal drive the same code at a tiny size."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from torchft_tpu_torch.coordination import LighthouseServer
+
+    if cfg is None:
+        cfg = flagship_config()
+    on_card = device == "cuda"
+    store_dir = tempfile.mkdtemp(prefix="tft_cold_restore_")
+    env = {"TORCHFT_STORE_DIR": store_dir, "TORCHFT_STORE_SPILL_S": "0",
+           "TORCHFT_STORE_VERSIONS": "1"}
+    env_before = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    compute = threading.Lock()
+    restored = {}
+
+    def fleet(seed: int, stop_at: int, label: str, hook=None) -> "list":
+        lighthouse = LighthouseServer(
+            min_replicas=2, join_timeout_ms=100, heartbeat_timeout_ms=5000
+        )
+        ex = ThreadPoolExecutor(max_workers=2)
+        try:
+            futures = [
+                ex.submit(ddp_group, g, seed, stop_at, cfg, batch, seq, device,
+                          lighthouse.address(), compute, False, label,
+                          None if hook is None else
+                          (lambda m, o, mg, g=g: hook(g, m, o, mg)))
+                for g in range(2)
+            ]
+            return [f.result(timeout=1800) for f in futures]
+        finally:
+            ex.shutdown(wait=False)
+            lighthouse.shutdown()
+
+    def on_restore(gid, model, opt, manager) -> None:
+        restored[gid] = {
+            "step": manager.current_step(),
+            "digests": state_digests(model, opt),
+            "heal": manager.heal_info(),
+        }
+
+    try:
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        first = fleet(0, steps, "cold restore step")
+        train_s = time.perf_counter() - t0
+        for r in first:
+            assert r["final_step"] == steps and len(r["steps"]) == steps
+            assert all(s["committed"] for s in r["steps"]), "a step failed"
+        with ThreadPoolExecutor(max_workers=2) as ex:
+            trained = list(ex.map(lambda r: state_digests(r["model"], r["opt"]), first))
+        assert trained[0] == trained[1], "the two groups differ before the stop"
+        spills = [dict(s["store"], group=s["group"], at_step=s["step"])
+                  for r in first for s in r["steps"] if "store" in s]
+        final_spill = [r["store"] for r in first]
+        disk_bytes = _disk_bytes(store_dir)
+        log(f"whole fleet stopped after step {steps}; {disk_bytes} B on disk; "
+            "restarting both groups from a fresh init")
+        del first
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        second = fleet(12345, steps + 1, "after cold restore step", on_restore)
+        restart_s = time.perf_counter() - t1
+    finally:
+        shutil.rmtree(store_dir, ignore_errors=True)
+        for k, v in env_before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+
+    if on_card:
+        # AdamW keeps its step counters on the CPU; everything else trained
+        # on the card
+        off = [n for n, (_d, dev) in trained[0].items()
+               if not dev.startswith("cuda") and not n.endswith("/step")]
+        assert not off, f"leaves off the card: {off[:5]}"
+    restores = []
+    for g, r in enumerate(second):
+        got = restored[g]
+        assert got["step"] == steps, f"group{g} restored step {got['step']}"
+        assert got["digests"] == trained[0], (
+            f"group{g} restored state differs: "
+            f"{[n for n in trained[0] if got['digests'].get(n) != trained[0][n]][:5]}"
+        )
+        heal = got["heal"]
+        assert heal["restore"]["version"] == steps, heal
+        assert heal["restore"]["disks"] == 2 and heal["sources"] == 2, heal
+        assert r["final_step"] == steps + 1 and len(r["steps"]) == 1
+        assert r["steps"][0]["committed"], "the step after the restore failed"
+        restores.append(heal)
+    losses = [s["loss"] for r in second for s in r["steps"]]
+    assert all(math.isfinite(x) for x in losses), losses
+    log(f"cold restore: both groups restored step {steps} from 2 disks, "
+        "bitwise equal to the stopped fleet (parameters and AdamW state, "
+        "on their devices), and trained one more step")
+    return {
+        "steps": steps,
+        "spills": spills,
+        "final_spill": final_spill,
+        "disk_bytes": disk_bytes,
+        "restores": restores,
+        "train_wall_s": train_s,
+        "restart_wall_s": restart_s,
+        "peak_memory_gb": peak_gb,
+        "losses": losses,
+    }
+
+
+# ---------------------------------------------------------------------------
+# phase 8: online re-shard of a flat parameter copy over four groups
+# ---------------------------------------------------------------------------
+
+def jax_leaf_order(names) -> "list":
+    """The port's parameter names in the JAX package's leaf order: its
+    pytree flattens sorted keys (``blocks`` < ``embed`` < ``final_norm``,
+    the block leaves sorted by name), each block leaf stacked by layer."""
+    def key(name: str):
+        parts = name.split(".")
+        if parts[0] == "blocks":
+            return ("blocks", parts[2], int(parts[1]))
+        return (parts[0], "", 0)
+
+    return sorted(names, key=key)
+
+
+def reshard_path(cfg=None, batch: int = 8, seq: int = 1024, device: str = "cuda",
+                 total_steps: int = 6, kill_at: int = 3) -> "dict":
+    """Phase 8: four flagship groups under a ``LayoutConstraints`` memory
+    ceiling of half the sharded bytes, so they bootstrap at layout
+    (2, 2, 1).  The sharded state is a flat f32 copy of the flagship's
+    parameters on the card, one leaf per parameter in the JAX package's
+    leaf order.  Each step runs the flagship's forward and backward
+    (kernels A, B, C) and ``Manager.allreduce`` of the gradients, and each
+    committed step updates the owned slices through ``update_sharded``
+    with ``owned -= lr * avg_grad[interval]``.  Group 3 stops before step
+    ``kill_at``; the three survivors must re-plan to (1, 3, 1), re-shard
+    live and commit the same epoch at the same step, and their shards,
+    joined in shard order, must equal bitwise the full vector group 0
+    keeps with the same updates."""
+    import torch
+
+    from torchft_tpu_torch import Manager, ProcessGroupTCP, module_grads
+    from torchft_tpu_torch.coordination import LighthouseServer
+    from torchft_tpu_torch.models import transformer as tf
+    from torchft_tpu_torch.parallel import layout as tl
+
+    if cfg is None:
+        cfg = flagship_config()
+    n_groups, victim, lr = 4, 3, 1e-3
+    on_card = device == "cuda"
+    compute = threading.Lock()
+    ready = threading.Barrier(n_groups)
+    probe = tf.Transformer(cfg, "meta")
+    order = jax_leaf_order([n for n, _ in probe.named_parameters()])
+    sizes = {n: p.numel() for n, p in probe.named_parameters()}
+    del probe
+    param_bytes = 4 * sum(sizes.values())
+    constraints = tl.LayoutConstraints(
+        param_bytes=param_bytes, shard_memory_bytes=param_bytes // 2
+    )
+    ref = {}
+
+    def sync() -> None:
+        if on_card:
+            torch.cuda.synchronize()
+
+    def group(gid: int) -> dict:
+        model = tf.init_params(torch.Generator().manual_seed(0), cfg, device)
+        params = dict(model.named_parameters())
+        shard = {n: params[n].detach().reshape(-1).clone() for n in order}
+        if gid == 0:
+            ref.update({n: t.clone() for n, t in shard.items()})
+        ctrl = tl.LayoutController(constraints)
+        ctrl.register_sharded_state(
+            "params", {n: sizes[n] for n in order}, lambda: dict(shard),
+            shard.update,
+        )
+        manager = Manager(
+            pg=ProcessGroupTCP(timeout=600.0), min_replica_size=1,
+            load_state_dict=lambda sd: None, state_dict=lambda: {"group": gid},
+            lighthouse_addr=lighthouse.address(), replica_id=f"reshard{gid}",
+            group_rank=0, group_world_size=1, use_async_quorum=True,
+            init_sync=False, timeout=600.0, quorum_timeout=600.0,
+            max_retries=6 * total_steps,
+        )
+        manager.attach_layout(ctrl)
+        grad_step = tf.make_grad_step(cfg)
+        history = []
+        ready.wait(timeout=600)
+        try:
+            while manager.current_step() < total_steps:
+                step = manager.current_step()
+                if gid == victim and step == kill_at:
+                    break  # the group dies: its Manager shuts down below
+                phases0 = manager.phase_times()
+                t0 = time.perf_counter()
+                manager.start_quorum()
+                tokens = torch.randint(
+                    0, cfg.vocab_size, (batch, seq),
+                    generator=torch.Generator().manual_seed(1000 * gid + step),
+                ).to(device)
+                with compute:
+                    loss, _ = grad_step(model, tokens)
+                    sync()
+                avg = manager.allreduce(module_grads(model)).wait(timeout=600)
+                model.zero_grad(set_to_none=True)
+                committed = manager.should_commit()
+                if committed:
+                    ctrl.update_sharded(
+                        "params",
+                        lambda leaf, arr, start: arr.sub_(
+                            lr * avg[leaf].reshape(-1)[start:start + arr.numel()]
+                        ),
+                    )
+                    if gid == 0:
+                        for n, t in ref.items():
+                            t.sub_(lr * avg[n].reshape(-1))
+                del avg
+                sync()
+                phases = manager.phase_times()
+                layout = ctrl.active_layout()
+                history.append({
+                    "group": gid, "step": step, "committed": committed,
+                    "loss": float(loss),
+                    "layout": list(layout.key()) if layout else None,
+                    "epoch": layout.epoch if layout else None,
+                    "shard": list(ctrl.shard_coords()),
+                    "step_ms": (time.perf_counter() - t0) * 1e3,
+                    "phases_ms": {
+                        k: (phases[k] - phases0.get(k, 0.0)) * 1e3
+                        for k in phases if phases[k] > phases0.get(k, 0.0)
+                    },
+                })
+                log(f"  reshard step {json.dumps(history[-1])}")
+            return {
+                "gid": gid, "history": history, "controller": ctrl,
+                "final_step": manager.current_step(),
+                "shard": shard if gid != victim else None,
+            }
+        finally:
+            manager.shutdown()
+
+    lighthouse = LighthouseServer(
+        min_replicas=n_groups - 1, join_timeout_ms=60000, heartbeat_timeout_ms=5000
+    )
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t_start = time.perf_counter()
+    ex = ThreadPoolExecutor(max_workers=n_groups)
+    try:
+        results = [f.result(timeout=1800)
+                   for f in [ex.submit(group, g) for g in range(n_groups)]]
+    finally:
+        ex.shutdown(wait=False)
+        lighthouse.shutdown()
+    wall = time.perf_counter() - t_start
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+
+    survivors = [r for r in results if r["gid"] != victim]
+    assert results[victim]["final_step"] == kill_at
+    switch_steps, epochs = set(), set()
+    for r in survivors:
+        hist = r["history"]
+        assert r["final_step"] == total_steps
+        assert all(h["committed"] for h in hist), f"group{r['gid']}: a step failed"
+        # the seed layout (pure DP, 4 groups) breaks the memory ceiling:
+        # the first quorum stages (2, 2, 1), the next commits it; the
+        # shrink then stages and commits (1, 3, 1)
+        seen = [h["layout"] for h in hist]
+        assert seen == sorted(seen, reverse=True), seen
+        assert [2, 2, 1] in seen and seen[-1] == [1, 3, 1], seen
+        assert set(map(tuple, seen)) <= {(4, 1, 1), (2, 2, 1), (1, 3, 1)}, seen
+        first_131 = next(h for h in hist if h["layout"] == [1, 3, 1])
+        switch_steps.add(first_131["step"])
+        ctrl = r["controller"]
+        active = ctrl.active_layout()
+        epochs.add(active.epoch)
+        boot = next(h["epoch"] for h in hist if h["layout"] == [2, 2, 1])
+        # no epoch reused: the two committed epochs differ and neither was
+        # burned; every later plan starts past both
+        assert active.epoch > boot and not ctrl.state.is_burned(active.epoch)
+        assert not ctrl.state.is_burned(boot)
+        assert ctrl.state.next_epoch() > active.epoch
+        assert ctrl.shard_coords()[1] == 3
+    assert len(switch_steps) == 1 and len(epochs) == 1, (switch_steps, epochs)
+    by_index = {r["controller"].shard_coords()[0]: r["shard"] for r in survivors}
+    assert sorted(by_index) == [0, 1, 2]
+    for n in order:
+        joined = torch.cat([by_index[i][n] for i in range(3)])
+        assert torch.equal(joined, ref[n]), f"reshard lost an update of {n}"
+    switch = {r["gid"]: dict(r["controller"].last_switch) for r in survivors}
+    at = switch_steps.pop()
+    stage_ms, commit_ms = {}, {}
+    for r in survivors:
+        for h in r["history"]:
+            if "reshard" in h["phases_ms"]:
+                stage_ms.setdefault(r["gid"], []).append(
+                    (h["step"], h["phases_ms"]["reshard"]))
+            if "layout_commit" in h["phases_ms"]:
+                commit_ms.setdefault(r["gid"], []).append(
+                    (h["step"], h["phases_ms"]["layout_commit"]))
+    step_ms = [h["step_ms"] for r in survivors for h in r["history"]]
+    log(f"reshard: the three survivors switched (2, 2, 1) -> (1, 3, 1) at "
+        f"step {at}, epoch {epochs.pop()}, and their shards joined equal the "
+        "reference vector bitwise")
+    return {
+        "switch_step": at,
+        "switch": {g: {k: v for k, v in sw.items() if k != "store_address"}
+                   for g, sw in switch.items()},
+        "stage_ms": stage_ms,
+        "commit_ms": commit_ms,
+        "sharded_bytes": param_bytes,
+        "survivor_step_ms": step_ms,
+        "median_step_ms": statistics.median(step_ms),
+        "peak_memory_gb": peak_gb,
+        "wall_s": wall,
+        "losses": [h["loss"] for r in results for h in r["history"]],
     }
 
 
@@ -1346,6 +1753,50 @@ def main() -> int:
     log(f"{card} | diloco heal_recv {dsum['heal_recv_ms']:.1f} ms, peak memory "
         f"{dsum['peak_memory_gb']} GB, phase wall {dsum['wall_s']:.1f} s")
     log(f"diloco path on {card}: " + json.dumps(dsum))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    csum, c_launches, c_twin_calls = drive(cold_restore_path)
+    log(f"cold restore path launches {c_launches}, plain twin calls {c_twin_calls}")
+    assert all(c_launches[k] > 0 for k in ("flash_fwd", "flash_bwd_kv", "flash_bwd_q")), c_launches
+    assert all(n == 0 for n in c_twin_calls.values()), c_twin_calls
+    for sp in csum["spills"] + [dict(f, at_step="shutdown") for f in csum["final_spill"]]:
+        log(f"{card} | spill of v{sp.get('version')} at step {sp['at_step']}: "
+            f"snapshot {sp.get('snapshot_s', 0) * 1e3:.1f} ms on the caller; "
+            f"last finished put v{sp.get('put_version')}: encode "
+            f"{sp.get('encode_s', 0) * 1e3:.1f} ms, write {sp.get('write_s', 0) * 1e3:.1f} ms, "
+            f"{sp.get('bytes_written')} B written; versions skipped so far {sp.get('skipped')}")
+    log(f"{card} | store on disk after the stop: {csum['disk_bytes']} B (two disks, "
+        "one version each)")
+    for i, r in enumerate(csum["restores"]):
+        wall = r["restore"]["wall_s"]
+        log(f"{card} | cold restore group{i}: wall {wall * 1e3:.1f} ms (catalog "
+            f"{r['restore']['catalog_s'] * 1e3:.1f} ms, cut {r['restore']['cut_s'] * 1e3:.3f} ms, "
+            + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in r["phases"].items())
+            + f"), {r['wire_bytes']} B, {r['wire_bytes'] / 1e9 / wall:.3f} GB/s, "
+            f"{r['sources']} stripe sources ({r['mode']}, {r['changed']} of "
+            f"{r['fragments']} fragments)")
+    log(f"{card} | yardstick: PGTransport heal_recv of the DDP path {pg_heal:.1f} ms")
+    log(f"{card} | cold restore phase: train {csum['train_wall_s']:.1f} s, restart "
+        f"{csum['restart_wall_s']:.1f} s, peak memory {csum['peak_memory_gb']} GB")
+    log(f"cold restore path on {card}: " + json.dumps(csum))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rsum, r_launches, r_twin_calls = drive(reshard_path)
+    log(f"reshard path launches {r_launches}, plain twin calls {r_twin_calls}")
+    assert all(r_launches[k] > 0 for k in ("flash_fwd", "flash_bwd_kv", "flash_bwd_q")), r_launches
+    assert all(n == 0 for n in r_twin_calls.values()), r_twin_calls
+    for g, sw in rsum["switch"].items():
+        log(f"{card} | reshard group{g}: {sw['layout']} epoch {sw['epoch']} at step "
+            f"{rsum['switch_step']}: staged {sw['staged_bytes']} B, fetched "
+            f"{sw['fetched_bytes']} B; stage and fetch ms by step "
+            f"{rsum['stage_ms'].get(g)}, commit ms by step {rsum['commit_ms'].get(g)}")
+    log(f"{card} | reshard survivor median step {rsum['median_step_ms']:.1f} ms "
+        f"(steps {[round(x, 1) for x in rsum['survivor_step_ms']]}), sharded state "
+        f"{rsum['sharded_bytes']} B, peak memory {rsum['peak_memory_gb']} GB, "
+        f"phase wall {rsum['wall_s']:.1f} s")
+    log(f"reshard path on {card}: " + json.dumps(rsum))
 
     sources = {
         "flash_fwd": ("torchft_tpu_torch/csrc/flash_fwd.cu",
@@ -1364,12 +1815,13 @@ def main() -> int:
     checks = {}
     for part in ("max_abs", "times", "bounds", "library"):
         checks[part] = {**kernels[part], **quant[part]}
-    # launches: the DDP, heal and DiLoCo paths' runs together (each
-    # counted from 0); E and F have no caller on any of them
+    # launches: the DDP, heal, DiLoCo, cold-restore and reshard paths'
+    # runs together (each counted from 0); E and F have no caller on any
     record = {"kernels": [
         {
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": launches[name] + h_launches[name] + d_launches[name],
+            "launches": sum(run[name] for run in (
+                launches, h_launches, d_launches, c_launches, r_launches)),
             "max_abs_err": checks["max_abs"][name],
             "ms": checks["times"][name][0],
             "plain_ms": checks["times"][name][1],

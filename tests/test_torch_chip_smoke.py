@@ -102,3 +102,48 @@ def test_heal_path_rehearsal_on_cpu():
     # 2 survivors x 5 + 3 before the kill + 2 after it
     assert len(summary["losses"]) == 15
     assert fa.flash_fwd_plain.calls - before == 15
+
+
+def _tiny():
+    return tf.TransformerConfig(
+        vocab_size=256, d_model=64, n_heads=2, n_kv_heads=1, d_ff=128,
+        n_layers=1, max_seq_len=128, dtype=torch.float32, remat=False,
+        attn_impl="flash",
+    )
+
+
+def test_cold_restore_path_rehearsal_on_cpu():
+    """The cold-restore phase at a tiny size: two groups spill every step
+    to a temporary store, stop together after step 4, and two fresh groups
+    restore step 4 from both disks bitwise (the path asserts it) and train
+    step 5; the store directory is gone afterwards."""
+    before = fa.flash_fwd_plain.calls
+    summary = chip_smoke.cold_restore_path(_tiny(), batch=1, seq=128, device="cpu")
+    assert summary["steps"] == 4 and len(summary["losses"]) == 2
+    assert summary["disk_bytes"] > 0
+    assert [f["version"] for f in summary["final_spill"]] == [4, 4]
+    for r in summary["restores"]:
+        assert r["restore"]["version"] == 4 and r["restore"]["disks"] == 2
+        assert r["sources"] == 2 and r["wire_bytes"] > 0
+        assert {"heal_wire", "heal_decode"} <= set(r["phases"])
+    assert all("snapshot_s" in s and s["version"] == s["at_step"]
+               for s in summary["spills"] if s["at_step"])
+    # 2 groups x 4 steps, then 2 x 1 after the restore
+    assert fa.flash_fwd_plain.calls - before == 10
+    assert "TORCHFT_STORE_DIR" not in os.environ
+
+
+def test_reshard_path_rehearsal_on_cpu():
+    """The reshard phase at a tiny size: four groups bootstrap to (2, 2, 1),
+    group 3 stops before step 3, and the survivors switch to (1, 3, 1) at
+    one step with shards equal to the reference vector (the path asserts
+    both); the shrink moves a third and a sixth of the state."""
+    summary = chip_smoke.reshard_path(_tiny(), batch=1, seq=128, device="cpu")
+    total = summary["sharded_bytes"]
+    fetched = sorted(sw["fetched_bytes"] for sw in summary["switch"].values())
+    # each leaf splits on its own, so a sixth and a third to a few elements
+    assert fetched[0] == 0
+    assert abs(fetched[1] - total / 6) <= 64 and abs(fetched[2] - total / 3) <= 64
+    assert all(sw["layout"] == (1, 3, 1) for sw in summary["switch"].values())
+    assert summary["switch_step"] == 4
+    assert len(summary["losses"]) == 3 * 6 + 3

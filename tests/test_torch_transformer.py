@@ -7,6 +7,7 @@ through ``convert.params_from_jax``.  Logits, the loss and the gradients
 tests/test_flash_attention.py:135 for the flash model.
 """
 
+import collections
 import dataclasses
 
 import jax
@@ -14,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from torchft_tpu.models import transformer as jtf
 from torchft_tpu_torch import convert
@@ -57,7 +59,7 @@ def test_logits_loss_and_grads_match_jax(setup, attn_impl):
 
     loss, grads = ttf.make_grad_step(tcfg)(model, ttokens)
     j_loss, j_grads = jtf.make_grad_step(jcfg)(params, jnp.asarray(tokens))
-    np.testing.assert_allclose(float(loss), float(j_loss), **TOL)
+    np.testing.assert_allclose(float(loss.detach()), float(j_loss), **TOL)
     got = jax.tree_util.tree_leaves(convert.params_to_jax(grads, tcfg))
     want = jax.tree_util.tree_leaves(j_grads)
     assert len(got) == len(want)
@@ -98,6 +100,69 @@ def test_remat_dots_raises_and_remat_full_matches():
     assert torch.equal(loss_full, loss_plain)
     for name in g_full:
         torch.testing.assert_close(g_full[name], g_plain[name])
-    model.cfg = dataclasses.replace(tcfg, remat_policy="dots")
-    with pytest.raises(NotImplementedError, match="dots"):
+    # "dots" runs: it keeps the matmul outputs instead of recomputing them,
+    # which changes no value
+    dots = dataclasses.replace(tcfg, remat_policy="dots")
+    model.cfg = dots
+    loss_dots, g_dots = ttf.make_grad_step(dots)(model, tokens)
+    assert torch.equal(loss_dots, loss_plain)
+    for name in g_full:
+        torch.testing.assert_close(g_dots[name], g_plain[name])
+    model.cfg = dataclasses.replace(tcfg, remat_policy="nope")
+    with pytest.raises(ValueError, match="remat_policy"):
         model(tokens)
+
+
+class _CountOps(TorchDispatchMode):
+    """Counts the matmuls and kernel-A ops dispatched while it is active."""
+
+    def __init__(self):
+        super().__init__()
+        self.counts = collections.Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                    torch.ops.torchft_tpu_torch.flash_fwd.default):
+            self.counts[str(func)] += 1
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("attn_impl", ["flash", "dense"])
+def test_remat_dots_matches_jax_and_recomputes_no_matmul(setup, attn_impl):
+    params, tree, tokens = setup
+    jcfg, tcfg = _configs(attn_impl)
+    jcfg = dataclasses.replace(jcfg, remat=True, remat_policy="dots")
+    tcfg = dataclasses.replace(tcfg, remat=True, remat_policy="dots")
+    model = convert.params_from_jax(tree, tcfg, device="cpu")
+    ttokens = torch.from_numpy(tokens).long()
+    j_loss, j_grads = jtf.make_grad_step(jcfg)(params, jnp.asarray(tokens))
+
+    backward_ops = {}
+    for name, cfg in (
+        ("dots", tcfg),
+        ("full", dataclasses.replace(tcfg, remat_policy="full")),
+        ("none", dataclasses.replace(tcfg, remat=False)),
+    ):
+        model.cfg = cfg
+        model.zero_grad(set_to_none=True)
+        loss = ttf.loss_fn(model, ttokens)
+        with _CountOps() as mode:
+            loss.backward()
+        backward_ops[name] = mode.counts
+        if name == "dots":
+            np.testing.assert_allclose(float(loss.detach()), float(j_loss), **TOL)
+            grads = {n: p.grad for n, p in model.named_parameters()}
+            got = jax.tree_util.tree_leaves(convert.params_to_jax(grads, tcfg))
+            want = jax.tree_util.tree_leaves(j_grads)
+            assert len(got) == len(want)
+            for a, b in zip(got, want):
+                np.testing.assert_allclose(a, np.asarray(b), **TOL)
+    # "dots" runs the backward's own matmuls only, as without remat;
+    # "full" also recomputes the blocks' projections (and kernel A)
+    assert backward_ops["dots"] == backward_ops["none"]
+    mm = "aten.mm.default"
+    assert backward_ops["full"][mm] >= backward_ops["dots"][mm] + 6 * tcfg.n_layers
+    if attn_impl == "flash":
+        fwd = "torchft_tpu_torch.flash_fwd.default"
+        assert backward_ops["dots"][fwd] == 0
+        assert backward_ops["full"][fwd] == tcfg.n_layers

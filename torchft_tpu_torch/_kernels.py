@@ -11,6 +11,12 @@ pass as ``data_ptr()`` integers, the stream as
 
 Nothing here runs when the module is imported: the CPU tests import every
 module, and this machine-independent part must not need ``nvcc``.
+
+Several processes may build at once: :func:`build` holds an
+``fcntl.flock`` on ``build/kernels/libtft.lock``, decides what is stale
+only once it holds it (so a second process reuses the first one's
+libraries), and each ``nvcc`` writes a temporary name of this process's
+own that ``os.replace`` moves into place (``utils/buildlock.py``).
 """
 
 from __future__ import annotations
@@ -22,6 +28,8 @@ import subprocess
 import threading
 import time
 from typing import Dict, List, Optional
+
+from torchft_tpu_torch.utils import buildlock
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -98,31 +106,35 @@ def build(names: "Optional[List[str]]" = None, force: bool = False) -> float:
     :data:`build_log`), all ``nvcc`` processes at once.  Returns the wall
     seconds spent; raises with the compiler output on any failure."""
     names = list(KERNELS) if names is None else names
-    todo = [n for n in names if force or _stale(n)]
     t0 = time.perf_counter()
-    if not todo:
+    if not force and not any(_stale(n) for n in names):
         return 0.0
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    nvcc = _nvcc()
-    procs = {}
-    for name in todo:
-        src = os.path.join(CSRC_DIR, KERNELS[name][0])
-        cmd = [
-            nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-            "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-            "-o", _lib_path(name, ".tmp"), src,
-        ]
-        procs[name] = subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        )
-    failed = []
-    for name, proc in procs.items():
-        out, _ = proc.communicate()
-        build_log[name] = out
-        if proc.returncode != 0:
-            failed.append(f"{name}:\n{out}")
-        else:
-            os.replace(_lib_path(name, ".tmp"), _lib_path(name))
+    with buildlock.locked(os.path.join(BUILD_DIR, "libtft")):
+        todo = [n for n in names if force or _stale(n)]
+        if not todo:
+            return 0.0
+        nvcc = _nvcc()
+        procs = {}
+        for name in todo:
+            src = os.path.join(CSRC_DIR, KERNELS[name][0])
+            tmp = buildlock.temp_name(_lib_path(name))
+            cmd = [
+                nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                "-Xptxas", "-v", "-o", tmp, src,
+            ]
+            procs[name] = (tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True,
+            ))
+        failed = []
+        for name, (tmp, proc) in procs.items():
+            out, _ = proc.communicate()
+            build_log[name] = out
+            ok = proc.returncode == 0
+            buildlock.replace_or_discard(tmp, _lib_path(name), ok)
+            if not ok:
+                failed.append(f"{name}:\n{out}")
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return time.perf_counter() - t0

@@ -13,6 +13,12 @@ libstdc++ into the library (as the ``CXX`` exported on the H100 machine
 does) leaves two copies of ``std::locale`` in one process once torch is
 imported, and the first ``ostringstream << long`` in a server thread
 crashes.
+
+Several processes may find the library missing at once: the build runs
+under an ``fcntl.flock`` on ``native/libtorchft_tpu_native.so.lock``,
+staleness is checked again once the lock is held, and make links a
+temporary name of this process's own that ``os.replace`` moves into place
+(``utils/buildlock.py``).
 """
 
 from __future__ import annotations
@@ -55,10 +61,13 @@ def loaded() -> bool:
 _CXXFLAGS = "-O2 -g -std=c++17 -fPIC -Wall -Wextra -pthread"
 
 
-def _build() -> None:
+def _build(out: str) -> None:
+    """Run make in ``native/`` with the library linked to ``out`` (a name
+    in ``native/``)."""
     cmd = [
         "make", "-C", _NATIVE_DIR, "-j", str(os.cpu_count() or 2),
         "CXX=g++", f"CXXFLAGS={_CXXFLAGS}",
+        f"LIB={os.path.basename(out)}",
     ]
     result = subprocess.run(cmd, capture_output=True, text=True)
     if result.returncode != 0:
@@ -111,8 +120,11 @@ def _find_lib() -> str:
         # library missing newly bound symbols — ctypes raises
         # AttributeError inside get_lib() and every coordination server
         # hard-fails on functionality unrelated to the new symbols
-        if not os.path.exists(repo) or _stale(repo):
-            _build()
+        from torchft_tpu_torch.utils import buildlock
+
+        buildlock.build_once(
+            repo, lambda: not os.path.exists(repo) or _stale(repo), _build
+        )
         return repo
     packaged = os.path.join(_PKG_DIR, _LIB_NAME)
     if os.path.exists(packaged):

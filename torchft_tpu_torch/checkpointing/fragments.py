@@ -803,14 +803,18 @@ def wire_digest(buf) -> str:
 
 
 def _raw_data_plane(
-    base: str, path: str, version: int, resource: str, timeout: float
+    base: str, path: str, version: int, resource: str, timeout: float,
+    native: bool = True,
 ) -> np.ndarray:
     """Route one raw fragment GET: native data plane when armed
-    (``TORCHFT_FRAG_NATIVE``), Python HTTP otherwise and on any native
-    miss.  The miss fallback is what keeps Mock transports, gated-off
-    peers, and non-mirrored resources (manifests, legacy docs) working
-    unchanged — and it is recorded so a fleet silently running the slow
-    path shows up in the flight recorder."""
+    (``TORCHFT_FRAG_NATIVE``) and ``native``, Python HTTP otherwise and on
+    any native miss.  The miss fallback is what keeps Mock transports,
+    gated-off peers, and non-mirrored resources (manifests, legacy docs)
+    working unchanged — and it is recorded so a fleet silently running the
+    slow path shows up in the flight recorder.  ``native=False`` is for
+    versions only the Python plane serves (a durable store's): the native
+    server would park each such request for the whole poll window (a
+    version newer than anything it staged) before its miss."""
     headers: "Optional[Dict[str, str]]" = None
     if resource.startswith("frag_"):
         # Client-driven cut-through park (X-TFT-Poll-Ms): ask the server
@@ -821,7 +825,7 @@ def _raw_data_plane(
         poll_ms = int(min(max(timeout * 1000 - 150, 0), 5000))
         if poll_ms > 0:
             headers = {"X-TFT-Poll-Ms": str(poll_ms)}
-        if _fragdata.enabled():
+        if native and _fragdata.enabled():
             got = _fragdata.fetch_native(base, version, resource, timeout)
             if got is not None:
                 buf, sha_hex, first_byte_s = got
@@ -844,6 +848,7 @@ def fetch_raw(
     timeout: float,
     role: str = "client",
     frag_index: "Optional[int]" = None,
+    native: bool = True,
 ) -> np.ndarray:
     """Fetch one staged resource as raw wire bytes (POOLED uint8 buffer —
     the caller owns giving it back or staging it), with the 503-poll
@@ -867,7 +872,7 @@ def fetch_raw(
             step=frag_index if frag_index is not None else version,
         )
         t = max(budget if budget is not None else 0.001, 0.001)
-        return _raw_data_plane(base, path, version, resource, t)
+        return _raw_data_plane(base, path, version, resource, t, native)
 
     t0p = time.perf_counter()
     buf = policy.run(attempt, timeout=max(timeout, 0.001), op=site)
@@ -1215,6 +1220,7 @@ def striped_fetch(
                     stripe.base, step, f"frag_{name}",
                     timeout=budget, role=role,
                     frag_index=frag_index[name],
+                    native=plane != "restore",
                 )
             except Exception as e:  # noqa: BLE001 - per-fragment failover
                 with cv:

@@ -23,8 +23,10 @@ snapshots them by copy (a CUDA tensor to the host once, a CPU tensor
 cloned), since an optimizer updates them in place after the commit; the
 streamed path serializes every fragment to bytes before it returns.  A
 heal decodes into the receiver's existing tensors, on whatever device
-they live.  Serving versions from a durable fragment store (the
-``/store/versions`` catalog, ``attach_store``) is not ported yet.
+they live.  With a durable fragment store attached (``attach_store``),
+versions absent from RAM serve their fragments from disk and
+``/store/versions`` lists the disk's restore catalog, so a cold-start
+restore rides the same striped fetch as a live heal.
 """
 
 from __future__ import annotations
@@ -76,17 +78,6 @@ _FETCH_POLICY = RetryPolicy(
         else isinstance(e, (urllib.error.URLError, ConnectionError, OSError))
     ),
 )
-
-
-def _host_copy(x: Any) -> Any:
-    """A leaf's staged snapshot: a tensor copied to the host (a CUDA
-    tensor once, a CPU tensor cloned), an array copied."""
-    if isinstance(x, torch.Tensor):
-        x = x.detach()
-        return x.cpu() if x.device.type != "cpu" else x.clone()
-    if hasattr(x, "__array__"):
-        return np.array(x)
-    return x
 
 
 class _Staged:
@@ -190,6 +181,73 @@ class _Handler(BaseHTTPRequestHandler):
         except BrokenPipeError:
             pass
 
+    def _serve_store_catalog(self, transport: "HTTPTransport") -> None:
+        """``/store/versions``: this rank's durable-store restore
+        inventory (version -> cut id, fragment list, digest-valid
+        fragments) for fleet-wide cold-start cut selection."""
+        import json
+
+        store = transport._store
+        if store is None:
+            self.send_error(404, "no durable store attached")
+            return
+        try:
+            body = json.dumps(store.catalog()).encode()
+        except Exception as e:
+            self.send_error(503, f"store catalog unavailable: {e}")
+            return
+        self._send_bytes(body, "application/json")
+
+    def _serve_from_store(
+        self, transport: "HTTPTransport", step: int, what: str
+    ) -> bool:
+        """Serve a ``frag_*`` resource for a version that is NOT
+        RAM-staged from the attached durable store.  Returns True when a
+        response (200 or permanent 404) was written; False falls through
+        to the retryable 503 (the version may simply be staging late).
+
+        Called under the staged read lock — disk reads are local and
+        bounded, and the lock is writer-priority so stagers stay live.
+        """
+        from torchft_tpu_torch.checkpointing import fragments as frags
+
+        store = transport._store
+        if store is None or not what.startswith("frag_"):
+            return False
+        name = what[len("frag_"):]
+        t0_ns = time.time_ns()
+        if name == frags.MANIFEST_FRAG:
+            body = store.manifest_bytes(step)
+            if body is None:
+                return False
+        elif name == frags.HEADER_FRAG:
+            manifest = store.manifest(step)
+            if manifest is None:
+                return False
+            body = ser.serialize(
+                {k: v for k, v in manifest.items() if k != "digests"}
+            )
+        else:
+            if store.manifest(step) is None:
+                return False
+            frag = store.fragment(step, name)
+            if frag is None:
+                # Version known but this blob is torn/missing: permanent
+                # 404 so the striped restorer fails over to another disk
+                # immediately instead of polling a hole.
+                self.send_error(404, "fragment missing or torn on disk")
+                return True
+            body = frag
+        self._send_bytes(body, "application/octet-stream")
+        _metrics.CHECKPOINT_BYTES.labels(
+            transport="http", direction="send"
+        ).inc(len(body))
+        _flightrec.record(
+            "checkpoint.http.send", start_ns=t0_ns, step=step,
+            bytes=len(body), resource=what, source="store",
+        )
+        return True
+
     def do_GET(self) -> None:  # noqa: N802 - http.server API
         # request received: the idle-reap timeout must not bound the
         # serve itself (see class docstring; re-armed per request above)
@@ -206,6 +264,11 @@ class _Handler(BaseHTTPRequestHandler):
                 self.send_error(404, "no native data plane")
             else:
                 self._send_bytes(str(native.port).encode(), "text/plain")
+            return
+        # /store/versions — the durable store's restore catalog (plain
+        # JSON, not a framed RPC: the wire-schema lock is untouched).
+        if parts == ["store", "versions"]:
+            self._serve_store_catalog(transport)
             return
         # /checkpoint/{step}/{what}
         if len(parts) != 3 or parts[0] != "checkpoint":
@@ -252,6 +315,12 @@ class _Handler(BaseHTTPRequestHandler):
             with transport._staged_lock.r_lock(timeout=transport._lock_timeout):
                 staged = transport._staged.get(step)
                 if staged is None:
+                    # Not in RAM: a cold-start restorer may still be able
+                    # to serve this version from the attached durable
+                    # fragment store (blobs digest-verified at read; a
+                    # torn blob 404s so the striped fetch fails over).
+                    if self._serve_from_store(transport, step, what):
+                        return
                     # Healer raced the sender's staging: retryable 503 (the
                     # receiver polls until its deadline). Permanent problems
                     # (bad path, chunk out of range) stay 404 and fail fast.
@@ -462,6 +531,11 @@ class HTTPTransport(CheckpointTransport[Any]):
         # TORCHFT_FRAG_NATIVE gate; any create failure degrades this node
         # to python-only serving (the mirror is an accelerator, never a
         # correctness dependency).
+        # Durable fragment store (checkpointing/store.py): when attached,
+        # versions absent from RAM serve their fragments from disk —
+        # cold-start restore rides the exact same frag_* resources and
+        # striped fetch path as live heal.
+        self._store: "Optional[Any]" = None
         self._frag_native: "Optional[_fragdata.FragDataServer]" = None
         if _fragdata.enabled() if native is None else bool(native):
             try:
@@ -476,6 +550,13 @@ class HTTPTransport(CheckpointTransport[Any]):
     def metadata(self) -> str:
         return self._address
 
+    def attach_store(self, store: Any) -> None:
+        """Expose a durable :class:`~torchft_tpu_torch.checkpointing.store.
+        FragmentStore` through this server: peers' cold-start restores
+        fetch ``frag_*`` resources of spilled versions (and the
+        ``/store/versions`` catalog) exactly like a live heal."""
+        self._store = store
+
     def send_checkpoint(
         self, dst_ranks: "List[int]", step: int, state_dict: Any, timeout: float
     ) -> None:
@@ -485,7 +566,7 @@ class HTTPTransport(CheckpointTransport[Any]):
         # live tensors in place once the step commits, and a view of a CPU
         # tensor would then serve the next step's values.
         t0_ns = time.time_ns()
-        host_sd = tree_map(_host_copy, state_dict)
+        host_sd = tree_map(ser.host_copy, state_dict)
         with self._staged_lock.w_lock(timeout=timeout):
             self._put_locked(step, _Staged(host_sd, max(self._num_chunks, 1)))
         self._native_mirror_complete(step, host_sd)
@@ -810,7 +891,7 @@ class HTTPTransport(CheckpointTransport[Any]):
                 mbuf = frags.fetch_raw(
                     primary, step, f"frag_{want}",
                     timeout=max(deadline - time.monotonic(), 0.001),
-                    role="heal",
+                    role="heal", native=plane != "restore",
                 )
             except _uerr.HTTPError as e:
                 if e.code != 404:
@@ -935,7 +1016,7 @@ class HTTPTransport(CheckpointTransport[Any]):
                 mfull = frags.fetch_raw(
                     primary, step, f"frag_{frags.MANIFEST_FRAG}",
                     timeout=max(deadline - time.monotonic(), 0.001),
-                    role="heal",
+                    role="heal", native=plane != "restore",
                 )
                 try:
                     manifest = frags.decode_manifest(mfull)

@@ -61,6 +61,19 @@ def _tensor_host(t: torch.Tensor) -> "Tuple[str, np.ndarray]":
     return name, (host.view(torch.int16) if name == _BF16 else host).numpy()
 
 
+def host_copy(x: Any) -> Any:
+    """A leaf's snapshot: a tensor copied to the host (a CUDA tensor once,
+    a CPU tensor cloned), an array copied, anything else as it is.  Torch
+    updates tensors in place, so a staged or spilled state needs copies
+    where the JAX package's immutable arrays need none."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach()
+        return x.cpu() if x.device.type != "cpu" else x.clone()
+    if hasattr(x, "__array__"):
+        return np.array(x)
+    return x
+
+
 def host_view(t: torch.Tensor) -> "Optional[np.ndarray]":
     """Writable host array sharing ``t``'s memory (CPU, contiguous), or
     None when received bytes must be staged and copied in."""

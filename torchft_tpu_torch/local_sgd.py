@@ -24,8 +24,8 @@ Semantics parity:
   fragment — avoiding the cross-replica deadlock described in reference
   :746-792.  Requires a synchronous quorum (reference :618-643).
 
-Not ported yet: the online-layout listeners (the port's Manager has no
-``attach_layout``).
+Both listen for committed layout switches when the Manager has a
+``LayoutController`` attached (``parallel/layout.py``).
 """
 
 from __future__ import annotations
@@ -127,6 +127,17 @@ class LocalSGD:
         manager.register_state_dict_fn(
             "LocalSGD", self._load_state_dict, lambda: _to_host(self._get_params())
         )
+        # Online parallelism switching (parallel/layout.py): a committed
+        # layout switch changes the averaging cohort mid-cycle, so restart
+        # the inner cycle — the first post-switch sync then bounds local
+        # divergence by at most sync_every fresh steps, not a straddled
+        # pre-switch remainder.
+        controller = manager.layout_controller()
+        if controller is not None:
+            controller.add_listener(self._on_layout_commit)
+
+    def _on_layout_commit(self, layout: Any, info: "Dict[str, Any]") -> None:
+        self._local_step = 0
 
     def _load_state_dict(self, state_dict: Params) -> None:
         self._set_params(state_dict)
@@ -455,6 +466,20 @@ class DiLoCo:
             )
             for i, keys in enumerate(fragments)
         ]
+        # Online parallelism switching: a committed switch must not be
+        # straddled by fragment state — discard any in-flight fragment
+        # allreduce (its cohort is gone) and re-snapshot the outer
+        # backups so no pseudogradient ever spans a layout generation.
+        # DiLoCo managers are sync-quorum, so the listener runs on the
+        # training-loop thread — no race with inner steps.
+        controller = manager.layout_controller()
+        if controller is not None:
+            controller.add_listener(self._on_layout_commit)
+
+    def _on_layout_commit(self, layout: Any, info: "Dict[str, Any]") -> None:
+        for frag in self._fragments:
+            frag.discard_pending_work()
+            frag.save_parameters()
 
     def __enter__(self) -> "DiLoCo":
         return self

@@ -13,8 +13,10 @@ What differs from the JAX package:
   back to the device its input leaf came from;
 - the allreduce zero-fills non-participants and divides by the live
   participant count (reference manager.py:416-417,447-454);
-- not ported yet, and therefore absent: the durable fragment store spill and
-  cold restore, ``attach_layout`` and ``attach_weight_publisher``.
+- the durable store spill copies the state to the host under the
+  state-dict read lock before the spill worker encodes it, since torch
+  updates tensors in place (the JAX package's arrays are immutable);
+- not ported yet, and therefore absent: ``attach_weight_publisher``.
 
 Heal: the default transport is ``HTTPTransport``.  With
 ``TORCHFT_HEAL_STREAM`` (on by default) a source stages its state as a
@@ -59,6 +61,8 @@ import torch
 from torch.profiler import record_function
 
 from torchft_tpu_torch.checkpointing import provenance as provenance
+from torchft_tpu_torch.checkpointing import serialization as ser
+from torchft_tpu_torch.checkpointing import store as fragment_store
 from torchft_tpu_torch.checkpointing.transport import CheckpointTransport
 from torchft_tpu_torch.coordination import ManagerClient, ManagerServer, StoreClient, StoreServer
 from torchft_tpu_torch.parallel.process_group import (
@@ -74,7 +78,7 @@ from torchft_tpu_torch.utils import metrics as metrics
 from torchft_tpu_torch.utils import tracing as tracing
 from torchft_tpu_torch.utils.env import env_bool, env_float, env_int, env_str
 from torchft_tpu_torch.utils.logging import ReplicaLogger, log_event
-from torchft_tpu_torch.utils.pytree import tree_flatten, tree_unflatten
+from torchft_tpu_torch.utils.pytree import tree_flatten, tree_map, tree_unflatten
 from torchft_tpu_torch.utils.retry import RetryPolicy
 from torchft_tpu_torch.utils.rwlock import RWLock
 
@@ -397,6 +401,32 @@ class Manager:
         self._summary_phase_snapshot: Dict[str, float] = {}
         self._summary_codec_s = 0.0
         self._summary_wire_s = 0.0
+        # Online parallelism switching (parallel/layout.py): optional
+        # LayoutController attached via attach_layout().  When present,
+        # every quorum entry carries this group's layout epoch + shard
+        # manifest, and the async-quorum thread runs the two-phase
+        # switch protocol (commit round first, then plan+stage).
+        self._layout: "Optional[Any]" = None
+        # Durable fragment store (checkpointing/store.py): opt-in via
+        # TORCHFT_STORE_DIR.  Committed steps spill to disk off the hot
+        # path (single-worker spiller) and the store is attached to the
+        # checkpoint transport so peers' cold-start restores can
+        # stripe-fetch spilled fragments from this rank's disk exactly
+        # like a live heal.
+        self._frag_store = fragment_store.store_from_env(
+            self._metric_replica_id, self._group_rank
+        )
+        self._spiller: "Optional[Any]" = None
+        self._spill_pending: "Optional[int]" = None
+        self._last_spill = 0.0
+        # the last spill's snapshot_s (on the caller) and the spiller's
+        # skipped count; the store's last_put holds encode and write
+        self._spill_info: "Dict[str, Any]" = {}
+        if self._frag_store is not None:
+            attach = getattr(self._checkpoint_transport, "attach_store", None)
+            if attach is not None:
+                attach(self._frag_store)
+            self._spiller = fragment_store.StoreSpiller(self._frag_store)
 
     @staticmethod
     def _endpoint_alive(addr: str, probe_timeout: float = 1.0) -> bool:
@@ -449,6 +479,85 @@ class Manager:
     def allow_state_dict_read(self) -> None:
         self._state_dict_lock.release_write()
 
+    def attach_layout(self, controller: Any) -> Any:
+        """Attach a :class:`~torchft_tpu_torch.parallel.layout.LayoutController`
+        enabling online parallelism switching: on membership change the
+        fleet re-plans its (dp, shard, pp) layout under a monotone layout
+        epoch, re-shards registered state live over the checkpoint
+        transport, and commits the switch at the same quorum round on
+        every group or rolls back.  Returns the controller for chaining."""
+        self._layout = controller
+        if hasattr(controller, "bind"):
+            controller.bind(self)
+        return controller
+
+    def layout_controller(self) -> "Optional[Any]":
+        return self._layout
+
+    def _flush_pending_spill(self, wait: bool = False) -> None:
+        """Spill the last committed step to the durable fragment store,
+        if one is pending and the ``TORCHFT_STORE_SPILL_S`` cadence has
+        elapsed (0 = every commit).  Only the snapshot runs on the
+        caller: under the state-dict read lock every leaf is copied to
+        the host (a CUDA tensor once, a CPU tensor cloned — the optimizer
+        updates them in place), so the spilled bytes are exactly what a
+        live replica at this step holds.  Encode + blob writes + manifest
+        publish run on the single spill worker, and a failed spill skips
+        the version (counted), never failing or stalling training."""
+        version, self._spill_pending = self._spill_pending, None
+        spiller = self._spiller
+        if spiller is None:
+            return
+        if wait:
+            # shutdown path: drain the in-flight spill FIRST so the final
+            # committed version is accepted instead of skipped (the
+            # no-backlog rule exists to protect the training loop, which
+            # is over by now)
+            spiller.flush()
+        if version is not None:
+            interval = env_float("TORCHFT_STORE_SPILL_S", 0.0, minimum=0.0)
+            if time.monotonic() - self._last_spill >= interval:
+                t0 = time.perf_counter()
+                try:
+                    with self._state_dict_lock.r_lock():
+                        state = tree_map(ser.host_copy, {
+                            "user": {
+                                k: fn()
+                                for k, fn in self._user_state_dicts.items()
+                            },
+                            "torchft": self.state_dict(),
+                        })
+                except Exception:  # noqa: BLE001 - spill never fails training
+                    self._logger.exception("store spill snapshot failed")
+                    state = None
+                self._spill_info = {
+                    "version": version,
+                    "snapshot_s": time.perf_counter() - t0,
+                }
+                if state is not None and spiller.submit(version, state):
+                    self._last_spill = time.monotonic()
+        if wait:
+            spiller.flush()
+
+    def store_info(self) -> "Dict[str, Any]":
+        """The durable store's last spill: ``snapshot_s`` (the host copy
+        on the caller), ``encode_s`` and ``write_s`` of the last spill
+        the worker finished (``put_version``), ``bytes_written`` and the
+        versions ``skipped`` so far; empty without a store."""
+        if self._frag_store is None:
+            return {}
+        put = dict(self._frag_store.last_put)
+        info = dict(self._spill_info)
+        info.update({
+            "put_version": put.pop("version", None),
+            "skipped": (
+                self._spiller.skipped if self._spiller is not None
+                else self._spill_info.get("skipped", 0)
+            ),
+            **put,
+        })
+        return info
+
     # ------------------------------------------------------------------
     # quorum
     # ------------------------------------------------------------------
@@ -468,6 +577,11 @@ class Manager:
 
         self._errored = None
         self._healing = False
+        # Durable store: the previous round's committed state is fully
+        # materialized by now (the user's optimizer update ran between
+        # should_commit and this call) — spill it as that step's version
+        # before the new round begins.
+        self._flush_pending_spill()
         # Straggler telemetry: piggyback (step, in-flight op) on the native
         # manager's lighthouse heartbeats, so the lighthouse can compute
         # per-replica step lag and straggler scores while this replica is
@@ -539,6 +653,12 @@ class Manager:
                         timeout=budget if budget is not None else quorum_timeout,
                         init_sync=self._init_sync,
                         commit_failures=self._commit_failures,
+                        layout_epoch=(
+                            0 if self._layout is None else self._layout.wire_epoch()
+                        ),
+                        layout_data=(
+                            "" if self._layout is None else self._layout.wire_data()
+                        ),
                     )
 
                 quorum = self._quorum_policy.run(
@@ -573,6 +693,64 @@ class Manager:
                 and self._participating_replica_rank >= self._min_replica_size
             ):
                 self._participating_replica_rank = None
+
+        # Online parallelism switching, two-phase (parallel/layout.py):
+        # FIRST resolve the previous round's staged switch (commit when
+        # the whole quorum reports the staged epoch, else roll back and
+        # burn it), THEN — if the live world no longer fits the active
+        # layout — plan the next layout and run the reshard transfers on
+        # this thread, where heal runs.  Neither phase may fail the
+        # training step: a broken switch degrades to the old layout.
+        # Runs BEFORE pg configure and the allow_heal gate: this round's
+        # quorum entry already advertised our epoch report, so skipping
+        # the commit round here (configure error, heal-less round) would
+        # let the rest of the fleet activate without us — the exact
+        # mixed-generation split the all-commit-same-epoch invariant
+        # forbids.  The transfers ride the checkpoint transport, not the
+        # PG, so ordering before configure is safe.
+        if self._layout is not None:
+            t_lc = time.perf_counter()
+            outcome = ""
+            try:
+                faults.check(
+                    "manager.layout_commit",
+                    replica=self._replica_id,
+                    step=quorum.max_step,
+                )
+                outcome = self._layout.maybe_commit(quorum)
+            except Exception as e:  # noqa: BLE001 - degrade, never wedge
+                self._logger.exception(f"layout commit failed: {e}")
+                self._layout.abort_staged(f"layout commit failed: {e}")
+                outcome = "rolled_back"
+            if outcome:
+                self._record_phase("layout_commit", time.perf_counter() - t_lc)
+                metrics.LAYOUT_SWITCHES.labels(
+                    replica_id=self._metric_replica_id, result=outcome
+                ).inc()
+                active = self._layout.active_layout()
+                metrics.LAYOUT_EPOCH.labels(
+                    replica_id=self._metric_replica_id
+                ).set(active.epoch if active is not None else 0)
+                log_event(
+                    "layout",
+                    f"layout switch {outcome}",
+                    job_id=env_str("JOB_ID", "unknown"),
+                    replica_id=self._replica_id,
+                    rank=self._group_rank,
+                    quorum_id=quorum.quorum_id,
+                    step=quorum.max_step,
+                    outcome=outcome,
+                    layout=str(active.key() if active is not None else None),
+                )
+            t_rs = time.perf_counter()
+            try:
+                staged = self._layout.maybe_stage(self, quorum)
+            except Exception as e:  # noqa: BLE001 - degrade, never wedge
+                self._logger.exception(f"layout staging failed: {e}")
+                self._layout.abort_staged(f"layout staging failed: {e}")
+                staged = True
+            if staged:
+                self._record_phase("reshard", time.perf_counter() - t_rs)
 
         if quorum.quorum_id != self._quorum_id:
             metrics.QUORUM_CHANGES.labels(replica_id=self._metric_replica_id).inc()
@@ -631,6 +809,24 @@ class Manager:
             )
             is True
         )
+
+        # Whole-fleet cold start: nobody in the quorum holds
+        # live state (max_step == 0) but disks might — restore the newest
+        # complete, consistent spilled cut through the striped heal path
+        # with files as stripe sources.  Every replica computes the same
+        # deterministic cut from the same fleet catalogs, so a
+        # successful restore replaces this round's live init-sync
+        # branches entirely; a failed one degrades to fresh init (and a
+        # replica whose restore failed alone re-heals live next round
+        # once its peers commit) — never a wedge.
+        if (
+            self._frag_store is not None
+            and streamed_heal
+            and self._step == 0
+            and quorum.max_step == 0
+        ):
+            if self._maybe_cold_restore(quorum):
+                return
 
         # Proactive stripe-source staging: a max-step participant can
         # tell healers exist this round (the max-step cohort is smaller
@@ -887,11 +1083,139 @@ class Manager:
             m for m in resolved if m and m != primary_metadata
         ]
 
+    def _resolve_store_bases(self, quorum: Any, own: str) -> "List[str]":
+        """Checkpoint-transport addresses of every reachable quorum
+        participant plus our own — cold restore canvasses ALL disks
+        (everyone is at step 0, so there is no max-step cohort to
+        prefer).  Sorted + deduped so every replica that resolves the
+        same roster derives the same base list, which keeps cut
+        selection deterministic fleet-wide."""
+        addrs: "List[str]" = []
+        for p in quorum.participants:
+            if isinstance(p, dict) and p.get("address"):
+                addrs.append(p["address"])
+
+        def _resolve(addr: str) -> "Optional[str]":
+            client = ManagerClient(
+                addr, connect_timeout=self._connect_timeout
+            )
+            try:
+                return client._checkpoint_metadata(
+                    self._group_rank, timeout=self._connect_timeout
+                )
+            except Exception as e:  # noqa: BLE001 - best-effort discovery
+                self._logger.info(
+                    f"store base {addr} unresolvable ({e}); restoring "
+                    f"without its disk"
+                )
+                return None
+            finally:
+                client.close()
+
+        resolved: "List[Optional[str]]" = []
+        if addrs:
+            with ThreadPoolExecutor(
+                max_workers=min(len(addrs), 4),
+                thread_name_prefix="tft_store_resolve",
+            ) as pool:
+                resolved = list(pool.map(_resolve, addrs))
+        return sorted({m for m in resolved if m} | {own})
+
+    def _maybe_cold_restore(self, quorum: Any) -> bool:
+        """Whole-fleet cold-start restore (docs/architecture.md "Durable
+        fragment store").
+
+        Discovers spilled catalogs across every reachable disk (own +
+        peers' via ``/store/versions``), picks the newest complete,
+        consistent cut (:func:`~torchft_tpu_torch.checkpointing.store.
+        select_cut` — deterministic, never mixes fragment versions), and
+        reassembles it via ``recv_checkpoint_striped`` with disks as
+        stripe sources: per-fragment failover across disks, delta reuse
+        of surviving local state.  Returns True when restored (state is
+        pending; the standard healing application path applies it).
+        Any failure returns False — fresh init, never a wedge."""
+        t0 = time.perf_counter()
+        try:
+            faults.check("store.restore", replica=self._replica_id, step=0)
+            own = self._checkpoint_transport.metadata()
+            bases = self._resolve_store_bases(quorum, own)
+            catalogs: "Dict[str, Any]" = {}
+            for base in bases:
+                cat = fragment_store.fetch_catalog(
+                    base, timeout=self._connect_timeout
+                )
+                if cat:
+                    catalogs[base] = cat
+            t_cut = time.perf_counter()
+            plan = fragment_store.select_cut(catalogs)
+            if plan is None:
+                return False
+            restore = {
+                "catalog_s": t_cut - t0,
+                "cut_s": time.perf_counter() - t_cut,
+                "version": plan[0],
+                "disks": len(plan[1]),
+            }
+            version, sources = plan
+            self._logger.info(
+                f"cold restore: selected spilled v{version} across "
+                f"{len(sources)} disk(s)"
+            )
+            self._healing = True
+            (
+                self._pending_state_dict,
+                info,
+            ) = self._checkpoint_transport.recv_checkpoint_striped(
+                sources,
+                step=version,
+                timeout=self._timeout,
+                local_state_fn=self._manager_state_dict,
+                plane="restore",
+            )
+            metrics.STORE_RESTORE_BYTES.labels(
+                mode=info.get("mode", "full")
+            ).inc(int(info.get("wire_bytes") or 0))
+            self.load_state_dict(
+                cast(Dict[str, int], self._pending_state_dict["torchft"])
+            )
+            restore["wall_s"] = time.perf_counter() - t0
+            self._heal_info = dict(info, restore=restore)
+            self._record_phase("heal_recv", restore["wall_s"])
+            metrics.HEALS.labels(
+                replica_id=self._metric_replica_id, direction="recv"
+            ).inc()
+            log_event(
+                "heal",
+                "cold-restored from durable store",
+                job_id=env_str("JOB_ID", "unknown"),
+                replica_id=self._replica_id,
+                rank=self._group_rank,
+                quorum_id=quorum.quorum_id,
+                step=version,
+                direction="recv",
+                mode=info.get("mode", "full"),
+                stripe_sources=info.get("sources", 1),
+                changed_fragments=info.get("changed"),
+            )
+            self._logger.info(
+                f"cold-restored to step {version} from {len(sources)} "
+                f"store source(s) mode={info.get('mode')}"
+            )
+            return True
+        except Exception as e:  # noqa: BLE001 - degrade to fresh init
+            self._logger.warning(f"cold restore failed (starting fresh): {e}")
+            self._healing = False
+            self._pending_state_dict = None
+            return False
+
     def heal_info(self) -> "Dict[str, Any]":
         """The last striped heal's info: ``mode`` (full/delta/legacy),
         ``sources``, ``fragments``, ``changed``, ``wire_bytes``,
         ``failovers``, ``sources_used`` and the ``phases`` split; empty
-        before the first heal or after a heal over another transport."""
+        before the first heal or after a heal over another transport.  A
+        cold restore adds ``restore``: ``catalog_s`` (disk discovery and
+        catalogs), ``cut_s`` (``select_cut``), ``version``, ``disks`` and
+        ``wall_s``."""
         return dict(self._heal_info)
 
     def _apply_pending_state_dict(self) -> None:
@@ -1156,6 +1480,13 @@ class Manager:
             commit_result=should_commit,
         )
 
+        # Layout two-phase hook: the barrier outcome decides whether a
+        # staged reshard survives into the next quorum's commit round —
+        # every local rank observes the same vote, so the whole group
+        # either carries the staged epoch or burns it together.
+        if self._layout is not None:
+            self._layout.on_step_commit(should_commit)
+
         self._checkpoint_transport.disallow_checkpoint()
 
         # Raised AFTER the round's root span closes below: the terminally
@@ -1166,6 +1497,12 @@ class Manager:
             self._step += 1
             self._batches_committed += self.num_participants()
             self._commit_failures = 0
+            # Durable store: the committed step spills to disk at the
+            # NEXT round's start (the user's post-commit optimizer update
+            # must land first so the spilled bytes equal what a live
+            # replica at this step holds), off the hot path on the single
+            # spill worker.
+            self._spill_pending = self._step
         else:
             self._commit_failures += 1
             if (
@@ -1409,6 +1746,13 @@ class Manager:
         second-largest addressable recovery phase.  Reference semantics
         preserved (manager.rs shutdown aborts in one Drop).
         """
+        # Final committed step spills too (wait=True drains the worker),
+        # so a clean shutdown leaves the newest step restorable on disk.
+        self._flush_pending_spill(wait=True)
+        if self._spiller is not None:
+            self._spill_info["skipped"] = self._spiller.skipped
+            self._spiller.shutdown()
+            self._spiller = None
         legs = [
             lambda: self._checkpoint_transport.shutdown(wait=wait),
             self._client.close,

@@ -9,8 +9,15 @@ each layer is a :class:`Block` module and the forward loops over them
 ``attn_impl``: ``"flash"`` (the hand-written CUDA kernels), ``"dense"``, or
 ``"auto"`` (flash on CUDA when ``T % 128 == 0``, else dense).
 
-Not ported yet: MoE, meshes and sharding, the pipeline, ring/Ulysses
-attention and ``remat_policy="dots"`` (which raises).
+Rematerialization: ``remat=True`` recomputes each block in the backward
+(``torch.utils.checkpoint``).  ``remat_policy="full"`` keeps only the block
+inputs; ``"dots"`` is the JAX package's ``dots_saveable``: selective
+activation checkpointing keeps every matmul's output (``aten.mm``,
+``addmm``, ``bmm``) and kernel A's (the flash forward op) and recomputes
+only the elementwise work between them.
+
+Not ported yet: MoE, meshes and sharding, the pipeline and ring/Ulysses
+attention.
 """
 
 from __future__ import annotations
@@ -21,9 +28,13 @@ from typing import Callable, Dict, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
-from torchft_tpu_torch.ops.flash_attention import flash_attention
+from torchft_tpu_torch.ops.flash_attention import flash_attention, flash_fwd_op
 from torchft_tpu_torch.ops.ring_attention import dense_attention
 
 
@@ -39,9 +50,8 @@ class TransformerConfig:
     rope_theta: float = 10000.0
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
-    # remat=True recomputes each block in the backward
-    # (torch.utils.checkpoint, the JAX package's remat_policy="full");
-    # "dots" (save matmul outputs only) is not ported and raises.
+    # remat=True recomputes each block in the backward; remat_policy
+    # "full" keeps the block inputs only, "dots" also every matmul output
     remat: bool = True
     remat_policy: str = "full"
     attn_impl: str = "auto"
@@ -60,6 +70,31 @@ def resolve_device(device: "str | torch.device") -> torch.device:
             "no CUDA device is available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+# ---------------------------------------------------------------------------
+# rematerialization
+# ---------------------------------------------------------------------------
+
+#: the ops whose outputs ``remat_policy="dots"`` keeps: the matmuls and
+#: kernel A (``jax.checkpoint_policies.dots_saveable`` keeps dot outputs)
+_DOT_OPS = frozenset({
+    torch.ops.aten.mm.default,
+    torch.ops.aten.addmm.default,
+    torch.ops.aten.bmm.default,
+    torch.ops.aten.baddbmm.default,
+    flash_fwd_op._opoverload,
+})
+
+
+def _dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    if op in _DOT_OPS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_dots_policy)
 
 
 # ---------------------------------------------------------------------------
@@ -165,14 +200,11 @@ class Transformer(nn.Module):
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        if cfg.remat and cfg.remat_policy != "full":
-            if cfg.remat_policy == "dots":
-                raise NotImplementedError(
-                    "remat_policy='dots' is not ported; use 'full' or remat=False"
-                )
+        if cfg.remat and cfg.remat_policy not in ("full", "dots"):
             raise ValueError(
                 f"unknown remat_policy {cfg.remat_policy!r}; expected 'full' or 'dots'"
             )
+        kw = {"context_fn": _dots_context} if cfg.remat_policy == "dots" else {}
         b, t = tokens.shape
         # _embed: a gather of the activation-dtype table (same values as
         # casting the table first)
@@ -180,7 +212,7 @@ class Transformer(nn.Module):
         positions = torch.arange(t, device=tokens.device)
         for block in self.blocks:
             if cfg.remat and self.training:
-                x = checkpoint(block, x, positions, use_reentrant=False)
+                x = checkpoint(block, x, positions, use_reentrant=False, **kw)
             else:
                 x = block(x, positions)
         return self._head(x)

@@ -260,13 +260,34 @@ flash_bwd_q.launches = 0
 # ---------------------------------------------------------------------------
 
 
+@torch.library.custom_op(
+    "torchft_tpu_torch::flash_fwd", mutates_args=(),
+    schema="(Tensor q3, Tensor k3, Tensor v3, float scale, bool causal)"
+    " -> (Tensor, Tensor)",
+)
+def flash_fwd_op(
+    q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor, scale: float,
+    causal: bool,
+) -> "Tuple[torch.Tensor, torch.Tensor]":
+    """:func:`flash_fwd` as a dispatcher op, so that selective activation
+    checkpointing (the transformer's ``remat_policy="dots"``) can name
+    kernel A's outputs and keep them instead of launching it again in the
+    backward."""
+    return flash_fwd(q3, k3, v3, scale, causal)
+
+
+@flash_fwd_op.register_fake
+def _(q3, k3, v3, scale, causal):
+    return torch.empty_like(q3), q3.new_empty(q3.shape[:2], dtype=torch.float32)
+
+
 class _Flash3(torch.autograd.Function):
     """``_flash3`` of the JAX package: forward is kernel A, backward is
     kernels B and C."""
 
     @staticmethod
     def forward(ctx, q3, k3, v3, scale: float, causal: bool):  # type: ignore[override]
-        o, lse = flash_fwd(q3, k3, v3, scale, causal)
+        o, lse = flash_fwd_op(q3, k3, v3, scale, causal)
         ctx.save_for_backward(q3, k3, v3, o, lse)
         ctx.scale = scale
         ctx.causal = causal

@@ -22,9 +22,14 @@ host (its int16 bit pattern shifted into the high half of a 32-bit word, so
 the device-to-host copy stays at 2 bytes per element), bucketed with the f32
 leaves, reduced on the ring in f32 and rounded back to bf16 to nearest even
 (``torch.Tensor.to`` rounds as ``ml_dtypes`` does); it comes back as a CPU
-bf16 tensor.  Every other op raises ``TypeError`` on a bf16 leaf instead of
-upcasting it silently.  The subprocess-isolated ``ProcessGroupBabyTCP`` of
-the JAX package is not ported yet.
+bf16 tensor.  ``reduce_scatter`` reduces bf16 the same way.  The ops that
+move data without reducing it (``broadcast``, ``allgather``, ``alltoall``,
+``sendrecv``, ``send``, ``recv``) carry a bf16 tensor as its 16-bit
+patterns, never converted: a uint16 view (:class:`_BF16Bits`) that the
+wire header names ``bfloat16``, as the JAX package names an ``ml_dtypes``
+bf16 array, and that comes back out as a CPU bf16 tensor.  The
+subprocess-isolated ``ProcessGroupBabyTCP`` of the JAX package is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -111,17 +116,46 @@ def _accumulation_dtype(dtype: np.dtype) -> np.dtype:
     return dtype
 
 
+_BF16 = "bfloat16"
+
+
+class _BF16Bits(np.ndarray):
+    """A bf16 tensor's 16-bit patterns on the host: a uint16 array that
+    the wire header names ``bfloat16`` and that an op's result turns back
+    into a bf16 tensor (:func:`_host_result`)."""
+
+
+def _dtype_name(a: np.ndarray) -> str:
+    """The dtype an array travels under on the wire."""
+    return _BF16 if isinstance(a, _BF16Bits) else str(a.dtype)
+
+
 def _as_numpy(x: Any) -> np.ndarray:
     """Host view of an array: a CPU tensor shares its memory, a CUDA
-    tensor is copied to the host (blocking on the work that produces it)."""
+    tensor is copied to the host (blocking on the work that produces it).
+    A bf16 tensor becomes its bit patterns (:class:`_BF16Bits`)."""
     if isinstance(x, torch.Tensor):
+        if x.dtype == torch.bfloat16:
+            bits = x.detach().contiguous().cpu().view(torch.int16).numpy()
+            return bits.view(np.uint16).view(_BF16Bits)
         if x.dtype not in _TORCH_TO_NUMPY:
             raise TypeError(
-                f"process group leaves must have a numpy dtype, got {x.dtype} "
-                "(only allreduce takes bf16 leaves)"
+                f"process group leaves must have a numpy dtype or be bf16, "
+                f"got {x.dtype}"
             )
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def _host_result(x: Any) -> Any:
+    """An op's result as the caller gets it: bf16 bit patterns (alone or
+    in a list) become CPU bf16 tensors, everything else is unchanged."""
+    if isinstance(x, _BF16Bits):
+        bits = np.asarray(x).view(np.int16)
+        return torch.from_numpy(bits).view(torch.bfloat16)
+    if isinstance(x, list):
+        return [_host_result(a) for a in x]
+    return x
 
 
 def _allreduce_in(x: Any) -> np.ndarray:
@@ -156,7 +190,7 @@ def _check_recv_buffer(out: np.ndarray, shape: Any, dtype: str) -> None:
     header: shape, dtype, and contiguity must all match (a silent
     value-cast or reshape would mask a buffer-setup bug)."""
     if (
-        str(out.dtype) != dtype
+        _dtype_name(out) != dtype
         or tuple(out.shape) != tuple(shape)
         or not out.flags.c_contiguous
     ):
@@ -309,16 +343,16 @@ class ProcessGroupDummy(ProcessGroup):
         )
 
     def allgather(self, array: Any) -> Work:
-        return completed_work([_as_numpy(array).copy()])
+        return completed_work(_host_result([_as_numpy(array).copy()]))
 
     def broadcast(self, array: Any, root: int = 0) -> Work:
-        return completed_work(_as_numpy(array).copy())
+        return completed_work(_host_result(_as_numpy(array).copy()))
 
     def reduce_scatter(self, array: Any, op: str = REDUCE_SUM) -> Work:
-        return completed_work(_as_numpy(array).copy())
+        return completed_work(_host_result(_as_numpy(array).copy()))
 
     def alltoall(self, arrays: "List[Any]") -> Work:
-        return completed_work([_as_numpy(a).copy() for a in arrays])
+        return completed_work(_host_result([_as_numpy(a).copy() for a in arrays]))
 
     def send(self, array: Any, dst: int, tag: int = 0) -> Work:
         return failed_work(RuntimeError("send not supported on world-size-1 group"))
@@ -791,7 +825,7 @@ class ProcessGroupTCP(ProcessGroup):
                 flight_op, self._flight_op = self._flight_op, None
             if flight_op is not None:
                 flight_op.finish("ok")
-            fut.set_result(result)
+            fut.set_result(_host_result(result))
         except Exception as e:  # noqa: BLE001 - latch every op failure
             # Flight-recorder dump BEFORE latching: when a wedged
             # collective dies (deadline, peer reset), the op-level state
@@ -887,10 +921,9 @@ class ProcessGroupTCP(ProcessGroup):
 
     def _send_msg(self, dst: int, tag: int, array: np.ndarray, deadline: float) -> None:
         peer = self._peer(dst)
+        dtype = _dtype_name(array)
         array = np.ascontiguousarray(array)
-        header = pickle.dumps(
-            {"tag": tag, "shape": array.shape, "dtype": str(array.dtype)}
-        )
+        header = pickle.dumps({"tag": tag, "shape": array.shape, "dtype": dtype})
         self._flight_io(
             send_peer=dst, send_tag=tag, send_bytes=array.nbytes,
             deadline_mono=deadline,
@@ -976,6 +1009,7 @@ class ProcessGroupTCP(ProcessGroup):
             raise RuntimeError(
                 f"collective tag mismatch: expected {tag}, got {header['tag']}"
             )
+        bf16 = header["dtype"] == _BF16
         if out is None:
             # Pool-backed receive: repeated collective shapes (ring chunks,
             # the quantized pipeline's per-chunk wire buffers) re-take the
@@ -983,7 +1017,10 @@ class ProcessGroupTCP(ProcessGroup):
             # allocation — and its mmap page-fault bill — is zero.  Buffers
             # that escape to callers simply never return to the pool (take
             # falls back to np.empty on a miss), same contract as before.
-            out = _pool.take(header["shape"], np.dtype(header["dtype"]))
+            out = _pool.take(
+                header["shape"],
+                np.dtype(np.uint16) if bf16 else np.dtype(header["dtype"]),
+            )
             if out.nbytes != nbytes:
                 raise RuntimeError(
                     f"collective payload size mismatch: header says {nbytes},"
@@ -1002,7 +1039,7 @@ class ProcessGroupTCP(ProcessGroup):
             self._read_into_sock(
                 peer.sock, memoryview(out.reshape(-1).view(np.uint8)), deadline
             )
-        return out
+        return out.view(_BF16Bits) if bf16 else out
 
     def _exchange(
         self,
@@ -1246,7 +1283,7 @@ class ProcessGroupTCP(ProcessGroup):
             if w == 1:
                 return [np_array.copy()]
             pieces: List[Optional[np.ndarray]] = [None] * w
-            pieces[r] = np.ascontiguousarray(np_array)
+            pieces[r] = np.require(np_array, requirements="C")
             nxt, prv = (r + 1) % w, (r - 1) % w
             for step in range(w - 1):
                 send_idx = (r - step) % w
@@ -1281,14 +1318,16 @@ class ProcessGroupTCP(ProcessGroup):
         return self._submit(run, op="broadcast")
 
     def reduce_scatter(self, array: Any, op: str = REDUCE_SUM) -> Work:
-        np_array = _as_numpy(array)
+        # bf16 reduces as allreduce does: widened exactly to f32, the
+        # result rounded back to bf16 to nearest even
+        np_array = _allreduce_in(array)
         deadline_budget = self._timeout
 
-        def run() -> np.ndarray:
+        def run() -> Any:
             deadline = time.monotonic() + deadline_budget
             w, r = self._world, self._rank
             if w == 1:
-                return np_array.copy()
+                return _allreduce_out(array, np_array.copy())
             if np_array.shape[0] % w != 0:
                 raise ValueError(
                     f"reduce_scatter dim0 {np_array.shape[0]} not divisible by {w}"
@@ -1320,7 +1359,7 @@ class ProcessGroupTCP(ProcessGroup):
             # copy: returning a view of chunks[r] would pin the w-times
             # larger accumulation buffer for as long as the caller holds
             # the result
-            return np.array(result, dtype=np_array.dtype)
+            return _allreduce_out(array, np.array(result, dtype=np_array.dtype))
 
         return self._submit(run, op="reduce_scatter")
 
@@ -1352,7 +1391,7 @@ class ProcessGroupTCP(ProcessGroup):
         def run() -> np.ndarray:
             deadline = time.monotonic() + deadline_budget
             if dst == self._rank and src == self._rank:
-                return np.ascontiguousarray(np_array).copy()
+                return np.require(np_array, requirements="C").copy()
             # the same concurrent send+recv primitive the ring steps use:
             # the send drains on the sender thread while this worker
             # blocks on the receive, so paired exchanges never deadlock
@@ -1426,10 +1465,14 @@ class ProcessGroupWrapper(ProcessGroup):
         )
 
     def allgather(self, array: Any) -> Work:
-        return self._wrap(self._pg.allgather(array), lambda: [_as_numpy(array)])
+        return self._wrap(
+            self._pg.allgather(array), lambda: _host_result([_as_numpy(array)])
+        )
 
     def broadcast(self, array: Any, root: int = 0) -> Work:
-        return self._wrap(self._pg.broadcast(array, root), lambda: _as_numpy(array))
+        return self._wrap(
+            self._pg.broadcast(array, root), lambda: _host_result(_as_numpy(array))
+        )
 
     def reduce_scatter(self, array: Any, op: str = REDUCE_SUM) -> Work:
         # Fallback keeps the success-path *shape*: this rank's row chunk.
@@ -1438,13 +1481,14 @@ class ProcessGroupWrapper(ProcessGroup):
             w = max(self._pg.size(), 1)
             rows = np_array.shape[0] // w if np_array.shape[0] >= w else 1
             r = max(self._pg.rank(), 0)
-            return np_array[r * rows : (r + 1) * rows]
+            return _host_result(np_array[r * rows : (r + 1) * rows])
 
         return self._wrap(self._pg.reduce_scatter(array, op), fallback)
 
     def alltoall(self, arrays: "List[Any]") -> Work:
         return self._wrap(
-            self._pg.alltoall(arrays), lambda: [_as_numpy(a) for a in arrays]
+            self._pg.alltoall(arrays),
+            lambda: _host_result([_as_numpy(a) for a in arrays]),
         )
 
     def sendrecv(self, array: Any, dst: int, src: int, tag: int = 0) -> Work:
@@ -1452,7 +1496,7 @@ class ProcessGroupWrapper(ProcessGroup):
         # same-shape both directions, so the sent array stands in
         return self._wrap(
             self._pg.sendrecv(array, dst, src, tag),
-            lambda: _as_numpy(array),
+            lambda: _host_result(_as_numpy(array)),
         )
 
     def send(self, array: Any, dst: int, tag: int = 0) -> Work:
