@@ -23,7 +23,11 @@ Phases, any failure exits non-zero:
    (``scaled_dot_product_attention``, timed here only; the port never
    calls it), computes each kernel's bound from the shapes, and times the
    layout copies ``flash_attention`` makes around the kernels and one
-   group's forward and backward with the card to itself.
+   group's forward and backward with the card to itself.  The example MLP
+   (784-128-128-10) and CNN (32x32x3) run forward and backward on the card
+   against the same models on the CPU (atol = rtol = 1e-4), and one MoE
+   layer (phase 9's widths) is timed against a dense FFN of its width,
+   with the routing's share.
 3. Main path: a native lighthouse and two replica groups as threads on the
    card, each with a Manager, a ProcessGroupTCP, DistributedDataParallel and
    an OptimizerWrapper around AdamW, train the flagship transformer
@@ -65,10 +69,11 @@ Phases, any failure exits non-zero:
    backup and outer state at the end, each sync's wire bytes below a
    3.5th of the f32 bytes, and D, A, B and C must have launched (D's twin
    never).
-7. Cold restore: two flagship groups with AdamW on the default
+7. Cold restore: two groups of the flagship's widths cut to 8 layers
+   (``COLD_RESTORE_LAYERS``) with AdamW on the default
    HTTPTransport spill every committed step to a durable store under a
    fresh temporary ``TORCHFT_STORE_DIR`` (``TORCHFT_STORE_SPILL_S=0``,
-   ``TORCHFT_STORE_VERSIONS=1``: about 11 GB of disk, removed at the end),
+   ``TORCHFT_STORE_VERSIONS=1``: about 6.2 GB of disk, removed at the end),
    train 4 steps and stop together; ``shutdown`` drains the last version.
    Two fresh groups from another init seed must cold-restore step 4 from
    both disks, with parameters and AdamW state bitwise equal (by sha256 per
@@ -84,6 +89,19 @@ Phases, any failure exits non-zero:
    live and commit one epoch at one step, and their shards joined must
    equal bitwise the full vector group 0 keeps.  Prints staged and fetched
    bytes, stage-and-fetch and commit ms, step times and peak memory.
+9. MoE serving: two groups train the flagship's widths with an MoE FFN
+   (8 experts, top-2, capacity factor 1.25, aux weight 0.01; depth cut to
+   4 layers, full remat) with FT-DDP and SGD for 6 steps; group 0's Manager
+   publishes every committed step (``attach_weight_publisher``, f32 wire,
+   8 fragments, 2 versions kept) into a chain of two serving relays, and a
+   serving client fetches versions until it holds the last, loading each
+   into a fresh model on the card.  Each fetched version's parameters and
+   eval logits must equal group 0's bitwise; the root relay dies once the
+   leaf serves v3, and the leaf must fail over to the publisher.  Prints
+   the step and its ring phase, the aux loss and dropped share per step,
+   the publish's snapshot, encode and staging, each relay's lag behind the
+   publish, each fetch's time, bytes, mode and staleness, the failovers
+   and peak memory.
 
 The last two lines are the kernels' JSON record and the device JSON.
 """
@@ -121,6 +139,29 @@ def card_line() -> str:
         capture_output=True, text=True, timeout=30,
     )
     return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "unknown"
+
+
+def host_rss_gb() -> float:
+    """This process's resident host memory (``VmRSS``), GB."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024 / 1e9
+    return float("nan")
+
+
+def release_host_memory() -> float:
+    """Collect garbage and hand the allocator's free pages back to the
+    system (the phases run in one process, on a host whose memory the
+    machine limits); returns the resident memory after."""
+    import ctypes
+
+    gc.collect()
+    try:
+        ctypes.CDLL("libc.so.6").malloc_trim(0)
+    except (OSError, AttributeError):
+        pass
+    return host_rss_gb()
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -463,9 +504,11 @@ HEAL_PHASES = ("heal_manifest", "heal_diff", "heal_wire", "heal_decode", "heal_r
 
 def ddp_group(gid: int, seed: int, stop_at: int, cfg, batch: int, seq: int,
               device: str, lighthouse_addr: str, compute, pg_transport: bool,
-              label: str = "step", on_first_quorum=None) -> dict:
-    """One FT-DDP replica group of phases 3, 4 and 7, run as a thread: the
-    flagship (``cfg``) with AdamW under a Manager that heals over
+              label: str = "step", on_first_quorum=None, make_opt=None,
+              on_step=None) -> dict:
+    """One FT-DDP replica group of phases 3, 4, 7 and 9, run as a thread: the
+    flagship (``cfg``) with AdamW (or ``make_opt(model)``) under a Manager
+    that heals over
     PGTransport, or over its default HTTPTransport, trained to step
     ``stop_at``.  Returns its steps, the heals it received
     (``Manager.heal_info()`` with the step's heal phases), its phase times,
@@ -475,7 +518,9 @@ def ddp_group(gid: int, seed: int, stop_at: int, cfg, batch: int, seq: int,
     ``compute`` is a lock the groups take turns on, so only one group's
     activations are live at a time.  ``on_first_quorum(model, opt,
     manager)`` runs once, after the first quorum (and any heal or cold
-    restore it brought) and before the first step's compute."""
+    restore it brought) and before the first step's compute;
+    ``on_step(model, manager, step_record)`` after each step, outside its
+    timing."""
     import torch
 
     from torchft_tpu_torch import (
@@ -489,7 +534,7 @@ def ddp_group(gid: int, seed: int, stop_at: int, cfg, batch: int, seq: int,
     from torchft_tpu_torch.models import transformer as tf
 
     model = tf.init_params(torch.Generator().manual_seed(seed), cfg, device)
-    opt = torch.optim.AdamW(
+    opt = make_opt(model) if make_opt is not None else torch.optim.AdamW(
         model.parameters(), lr=3e-4, betas=(0.9, 0.95), eps=1e-8,
         weight_decay=0.1,
     )
@@ -561,6 +606,8 @@ def ddp_group(gid: int, seed: int, stop_at: int, cfg, batch: int, seq: int,
             store = manager.store_info()
             if "version" in store:
                 steps[-1]["store"] = store
+            if on_step is not None:
+                on_step(model, manager, steps[-1])
             log(f"  {label} {json.dumps(steps[-1])}")
             # a striped heal's sub-phases can cover it whole, leaving the
             # heal_recv residue at 0: any heal phase marks a heal
@@ -866,6 +913,13 @@ def _disk_bytes(root: str) -> int:
     )
 
 
+#: the cold-restore phase's depth, cut from 16 so that the whole script,
+#: phase 9 included, stays near its earlier wall time: the phase spills,
+#: stops and restores 3.08 GB of model and AdamW state a group instead of
+#: 5.57 GB
+COLD_RESTORE_LAYERS = 8
+
+
 def cold_restore_path(cfg=None, batch: int = 8, seq: int = 1024,
                       device: str = "cuda", steps: int = 4) -> "dict":
     """Phase 7: two flagship groups with AdamW on the default HTTPTransport
@@ -875,8 +929,10 @@ def cold_restore_path(cfg=None, batch: int = 8, seq: int = 1024,
     drains the last version).  Two fresh groups from another init seed
     must cold-restore the last committed step from both disks, bitwise
     (parameters and AdamW state, each on the device it trained on), then
-    train one more step.  ``cfg``/``batch``/``seq``/``device`` let a CPU
-    rehearsal drive the same code at a tiny size."""
+    train one more step.  The card runs the flagship's widths at
+    ``COLD_RESTORE_LAYERS`` layers.  ``cfg``/``batch``/``seq``/``device``
+    let a CPU rehearsal drive the same code at a tiny size."""
+    import dataclasses
     import shutil
     import tempfile
 
@@ -885,7 +941,7 @@ def cold_restore_path(cfg=None, batch: int = 8, seq: int = 1024,
     from torchft_tpu_torch.coordination import LighthouseServer
 
     if cfg is None:
-        cfg = flagship_config()
+        cfg = dataclasses.replace(flagship_config(), n_layers=COLD_RESTORE_LAYERS)
     on_card = device == "cuda"
     store_dir = tempfile.mkdtemp(prefix="tft_cold_restore_")
     env = {"TORCHFT_STORE_DIR": store_dir, "TORCHFT_STORE_SPILL_S": "0",
@@ -1621,6 +1677,464 @@ def diloco_path(
     }
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the MoE transformer and the weight-serving tier
+# ---------------------------------------------------------------------------
+
+#: the MoE path's depth: at 16 layers the model holds 2.58 B parameters
+#: (10.3 GB in f32) and two groups' parameters, gradients and averaged
+#: gradients do not fit in 80 GB; 4 layers hold 681.6 M (2.73 GB a copy)
+MOE_LAYERS = 4
+
+
+def moe_config(n_layers: int = MOE_LAYERS):
+    """The flagship's widths (``bench.py:1663-1667``) with the MoE FFN at
+    ``MoEConfig``'s defaults (8 experts of d_ff 4096, top-2, capacity
+    factor 1.25) and aux weight 0.01, full remat, depth ``n_layers``."""
+    import dataclasses
+
+    return dataclasses.replace(
+        flagship_config(), n_layers=n_layers, n_experts=8, moe_top_k=2,
+        moe_capacity_factor=1.25, moe_aux_weight=0.01, remat=True,
+        remat_policy="full",
+    )
+
+
+def param_digests(model, pool) -> "dict":
+    """sha256 of each parameter (with its dtype and shape), by name; the
+    host copies and hashes run on ``pool``'s threads."""
+    names, tensors = zip(*model.named_parameters())
+    return dict(zip(names, pool.map(_digest, tensors)))
+
+
+def eval_logits_digest(model, tokens) -> str:
+    """sha256 of the f32 logits of a no-grad forward on ``tokens``."""
+    import torch
+
+    was = model.training
+    model.eval()
+    try:
+        with torch.no_grad():
+            return _digest(model(tokens))
+    finally:
+        model.train(was)
+
+
+def profile_ops(fn, top: int = 8) -> "list":
+    """The ``top`` operators of one warm call of ``fn`` by device time
+    (``torch.profiler``), as ``[name, device ms, calls]``; empty when the
+    profiler sees no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0.0)
+        if dev_us > 0:
+            rows.append([e.key, dev_us / 1e3, e.count])
+    rows.sort(key=lambda r: -r[1])
+    return rows[:top]
+
+
+def time_moe_layer(batch: int = 8, seq: int = 1024, reps: int = 5) -> "dict":
+    """One MoE FFN layer of the MoE path's config, forward and backward,
+    against a dense SwiGLU FFN of the same width (d_ff 4096) on the same
+    bf16 input, and the routing's share (router product, softmax, top-k
+    and positions, forward) of the MoE layer's time; the card to itself."""
+    import torch
+    import torch.nn.functional as F
+
+    from torchft_tpu_torch.models import moe
+
+    cfg = moe_config()
+    mcfg = moe.MoEConfig(d_model=cfg.d_model, d_ff=cfg.d_ff, n_experts=cfg.n_experts,
+                         top_k=cfg.moe_top_k, capacity_factor=cfg.moe_capacity_factor)
+    d, f, n = cfg.d_model, cfg.d_ff, batch * seq
+    gen = torch.Generator().manual_seed(3)
+    params = {k: v.requires_grad_() for k, v in moe.init_moe_params(gen, mcfg).items()}
+    dense = {
+        name: (torch.randn(shape, generator=gen) / shape[0] ** 0.5).cuda().requires_grad_()
+        for name, shape in (("w_gate", (d, f)), ("w_up", (d, f)), ("w_down", (f, d)))
+    }
+    x = torch.randn(batch, seq, d, generator=gen).to("cuda", torch.bfloat16).requires_grad_()
+    dy = torch.randn(batch, seq, d, generator=gen).to("cuda", torch.bfloat16)
+    act = torch.bfloat16
+
+    def moe_fwd():
+        return moe.moe_ffn_stats(x, params, mcfg)
+
+    def moe_step():
+        y, aux, _ = moe_fwd()
+        torch.autograd.backward((y, aux), (dy, torch.ones_like(aux)))
+
+    def dense_fwd():
+        gate = F.silu(x @ dense["w_gate"].to(act))
+        return (gate * (x @ dense["w_up"].to(act))) @ dense["w_down"].to(act)
+
+    def dense_step():
+        dense_fwd().backward(dy)
+
+    def routing():
+        with torch.no_grad():
+            logits = x.reshape(n, d).float() @ params["router"].float()
+            moe.route(logits, torch.softmax(logits, dim=-1), mcfg.n_experts,
+                      mcfg.top_k, moe._capacity(n, mcfg))
+
+    with torch.no_grad():
+        _, aux, dropped = moe_fwd()
+    out = {
+        "moe_fwd_bwd_ms": cuda_ms(moe_step, reps),
+        "dense_fwd_bwd_ms": cuda_ms(dense_step, reps),
+        "routing_fwd_ms": cuda_ms(routing, reps),
+        "dropped": float(dropped),
+        "aux": float(aux),
+    }
+    with torch.no_grad():
+        out["moe_fwd_ms"] = cuda_ms(moe_fwd, reps)
+        out["dense_fwd_ms"] = cuda_ms(dense_fwd, reps)
+    out["routing_share_of_moe_fwd_bwd"] = out["routing_fwd_ms"] / out["moe_fwd_bwd_ms"]
+    out["moe_ops"] = profile_ops(moe_step)
+    # expert products: three [E, C, d] x [E, d, f]-sized matmuls forward,
+    # twice that backward; the dense FFN's on N = B * T rows
+    cap = moe._capacity(n, mcfg)
+    out["moe_expert_gflop_fwd"] = 6 * mcfg.n_experts * cap * d * f / 1e9
+    out["dense_gflop_fwd"] = 6 * n * d * f / 1e9
+    del params, dense, x, dy
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"one MoE layer (B={batch} T={seq}, 8 experts, capacity {cap}): "
+        + json.dumps({k: v if k == "moe_ops" else round(v, 4) for k, v in out.items()}))
+    return out
+
+
+def check_small_models(batch: int = 64) -> "dict":
+    """The example MLP (784-128-128-10) and CNN (32x32x3) forward and
+    backward on the card against the same model (same seed) on the CPU,
+    at ``atol=rtol=1e-4`` (tests/test_torch_models.py); cuDNN's TF32 is
+    off for the check, so both run f32 products."""
+    import torch
+
+    from torchft_tpu_torch.models import cnn, mlp
+
+    cases = {
+        "mlp": (lambda dev: mlp.init_params(torch.Generator().manual_seed(0), device=dev),
+                (batch, 784)),
+        "cnn": (lambda dev: cnn.init_params(torch.Generator().manual_seed(0), device=dev),
+                (batch, 32, 32, 3)),
+    }
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    try:
+        for name, (make, shape) in cases.items():
+            x = torch.randn(shape, generator=torch.Generator().manual_seed(1))
+            results = []
+            for dev in ("cpu", "cuda"):
+                model = make(dev)
+                y = model(x.to(dev))
+                y.square().mean().backward()
+                results.append((y.detach().cpu(), {
+                    n: p.grad.cpu() for n, p in model.named_parameters()
+                }, model))
+            (y_c, g_c, _), (y_g, g_g, model) = results
+            assert all(p.device.type == "cuda" for p in model.parameters())
+            errs = [float((y_g - y_c).abs().max())]
+            torch.testing.assert_close(y_g, y_c, atol=1e-4, rtol=1e-4)
+            for n in g_c:
+                torch.testing.assert_close(g_g[n], g_c[n], atol=1e-4, rtol=1e-4)
+                errs.append(float((g_g[n] - g_c[n]).abs().max()))
+            xg = x.cuda()
+
+            def step():
+                model(xg).square().mean().backward()
+
+            out[name] = {"max_abs_err": max(errs), "fwd_bwd_ms": cuda_ms(step, 20)}
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    log("MLP and CNN on the card against the CPU (atol=rtol=1e-4): " + json.dumps(out))
+    return out
+
+
+def moe_serve_path(cfg=None, batch: int = 8, seq: int = 1024, device: str = "cuda",
+                   steps: int = 6, kill_after: int = 3, eval_batch: int = 2,
+                   failover_s: float = 10.0) -> "dict":
+    """Phase 9: two groups train the MoE transformer (``moe_config``) with
+    FT-DDP on the default HTTPTransport and SGD (lr 1e-2, no momentum: the
+    registered state, and each published version, is the weights alone).
+    Group 0's Manager publishes each committed step through a
+    ``WeightPublisher(wire="f32", fragments=8, max_versions=2)`` into a
+    chain of two ``ServingReplica``s (``serving_fanout=1``: root, then
+    leaf).  After each step group 0 records the sha256 of every parameter
+    and of the f32 logits of a no-grad forward on fixed eval tokens
+    (``eval_batch`` x ``seq``).  A ``ServingClient`` fetches the latest
+    version until it holds the last, loads each into a fresh Transformer
+    on ``device`` and runs the same forward: parameters and logits must
+    equal group 0's record bitwise.  After step ``kill_after + 1`` and
+    once the leaf serves version ``kill_after``, the root relay shuts
+    down; the leaf must fail over to the publisher (at least one relay
+    failover after the kill).  The groups end bitwise equal.
+    ``failover_s`` bounds a non-final source's share of a pull
+    (``TORCHFT_SERVING_FAILOVER_S``): long enough that a live relay
+    streaming a whole version is not abandoned."""
+    import torch
+
+    from torchft_tpu_torch.coordination import LighthouseServer
+    from torchft_tpu_torch.models import transformer as tf
+    from torchft_tpu_torch.serving import ServingClient, ServingReplica, WeightPublisher
+    from torchft_tpu_torch.utils import metrics as tm
+
+    if cfg is None:
+        cfg = moe_config()
+    on_card = device == "cuda"
+    env_before = os.environ.get("TORCHFT_SERVING_FAILOVER_S")
+    os.environ["TORCHFT_SERVING_FAILOVER_S"] = str(failover_s)
+    compute = threading.Lock()
+    hash_pool = ThreadPoolExecutor(max_workers=8)
+    eval_tokens = torch.randint(
+        0, cfg.vocab_size, (eval_batch, seq), generator=torch.Generator().manual_seed(7)
+    ).to(device)
+    relay_failovers = tm.SERVING_FAILOVERS.labels(role="relay")
+    client_failovers = tm.SERVING_FAILOVERS.labels(role="client")
+    fetch_bytes = tm.SERVING_FETCH_BYTES.labels(role="client")
+    staleness = tm.SERVING_STALENESS.labels(role="client")
+    failovers0 = (relay_failovers.get(), client_failovers.get())
+    records, fetched, kill, seen = {}, [], {}, {}
+    host_peak = [host_rss_gb()]
+    done = threading.Event()
+
+    lighthouse = LighthouseServer(
+        min_replicas=2, join_timeout_ms=100, heartbeat_timeout_ms=10000,
+        serving_fanout=1,
+    )
+    pub = WeightPublisher(lighthouse.address(), wire="f32", fragments=8,
+                          max_versions=2)
+    # a relay's pull gives up after ten failover budgets: a pull of a
+    # version the publisher has since evicted otherwise polls for the
+    # whole deadline (and outlives the relay's shutdown)
+    relays = [
+        ServingReplica(lighthouse.address(), replica_id=f"relay{i}", max_versions=2,
+                       poll_interval=0.05, fetch_timeout=10 * failover_s)
+        for i in range(2)
+    ]
+    client = ServingClient(lighthouse.address(), plan_ttl=0.5, client_id="inference0")
+
+    def wait_for(cond, what: str, timeout: float = 600.0) -> None:
+        deadline = time.monotonic() + timeout
+        while not cond():
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"moe serve path: timed out waiting for {what}")
+            time.sleep(0.05)
+
+    wait_for(lambda: len(client.plan(refresh=True)["nodes"]) == 2, "the relay chain")
+    plan = client.plan(refresh=True)
+    root_id = next(n["replica_id"] for n in plan["nodes"] if n["parent"] == "")
+    root = next(r for r in relays if r.replica_id() == root_id)
+    leaf = next(r for r in relays if r is not root)
+
+    def monitor() -> None:
+        """When each version became fetchable at the publisher and at each
+        relay (host clock), and each publish's encode and staging."""
+        while not done.is_set():
+            now = time.time()
+            for node, v in [("publisher", pub.latest_version())] + [
+                (r.replica_id(), r.version()) for r in relays
+            ]:
+                seen.setdefault((node, v), now)
+            last = dict(pub.last_publish)
+            if last:
+                seen.setdefault(("publish", last["version"]), last)
+            host_peak[0] = max(host_peak[0], host_rss_gb())
+            time.sleep(0.02)
+
+    def on_step(model, manager, rec) -> None:
+        v = manager.current_step()
+        with compute:
+            logits = eval_logits_digest(model, eval_tokens)
+        records[v] = {"params": param_digests(model, hash_pool), "logits": logits}
+        stats = [b.moe_stats for b in model.blocks]
+        rec["aux"] = sum(float(s_["aux"]) for s_ in stats)
+        rec["dropped"] = [round(float(s_["dropped"]), 5) for s_ in stats]
+        rec["publish"] = manager.publish_info()
+        if v == kill_after + 1:
+            wait_for(lambda: leaf.version() >= kill_after, f"the leaf to serve v{kill_after}")
+            kill.update(version=leaf.version(), failovers_before=relay_failovers.get())
+            root.shutdown()
+            kill["at"] = time.time()
+            log(f"  root relay {root_id} shut down after the leaf served v{kill['version']}")
+
+    def client_loop() -> None:
+        while True:
+            latest = client.latest_version()
+            if latest == 0 or any(f["version"] == latest for f in fetched):
+                if done.is_set() and latest == steps:
+                    return
+                time.sleep(0.1)
+                continue
+            mode = "delta" if fetched else "whole"
+            b0, st0 = fetch_bytes.get(), staleness.get()["sum"]
+            t0 = time.perf_counter()
+            state, v = client.fetch(timeout=600)
+            fetch_s = time.perf_counter() - t0
+            nbytes = fetch_bytes.get() - b0
+            stale_s = staleness.get()["sum"] - st0
+            model = tf.Transformer(cfg, device)
+            model.load_state_dict(state["default"]["model"])
+            del state
+            with compute:
+                logits = eval_logits_digest(model, eval_tokens)
+            digests = param_digests(model, hash_pool)
+            del model
+            fetched.append({
+                "version": v, "mode": mode, "fetch_ms": fetch_s * 1e3, "bytes": nbytes,
+                "gb_per_s": nbytes / 1e9 / fetch_s, "staleness_s": stale_s,
+                "params": digests, "logits": logits,
+            })
+            log(f"  client fetched v{v} ({mode}): {fetch_s * 1e3:.1f} ms, {nbytes} B, "
+                f"{nbytes / 1e9 / fetch_s:.3f} GB/s, staleness {stale_s:.3f} s")
+            if v == steps:
+                return
+
+    def make_opt(model):
+        return torch.optim.SGD(model.parameters(), lr=1e-2, momentum=0.0)
+
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t_start = time.perf_counter()
+    ex = ThreadPoolExecutor(max_workers=4)
+    try:
+        mon = ex.submit(monitor)
+        client_f = ex.submit(client_loop)
+        groups = [
+            ex.submit(
+                ddp_group, g, 0, steps, cfg, batch, seq, device, lighthouse.address(),
+                compute, False, "moe step",
+                (lambda m, o, mg: mg.attach_weight_publisher(pub)) if g == 0 else None,
+                make_opt, on_step if g == 0 else None,
+            )
+            for g in range(2)
+        ]
+        results = [f.result(timeout=1800) for f in groups]
+        done.set()
+        client_f.result(timeout=900)
+        mon.result(timeout=60)
+    finally:
+        done.set()
+        ex.shutdown(wait=False)
+        client.close()
+        for r in relays:
+            r.shutdown()
+        pub.shutdown()
+        lighthouse.shutdown()
+        hash_pool.shutdown(wait=False)
+        if env_before is None:
+            os.environ.pop("TORCHFT_SERVING_FAILOVER_S", None)
+        else:
+            os.environ["TORCHFT_SERVING_FAILOVER_S"] = env_before
+    wall = time.perf_counter() - t_start
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+
+    for r in results:
+        assert len(r["steps"]) == steps and r["final_step"] == steps
+        assert all(s_["committed"] for s_ in r["steps"]), "a step failed"
+    losses = [s_["loss"] for r in results for s_ in r["steps"]]
+    assert all(math.isfinite(x) for x in losses), losses
+    params = dict(results[0]["model"].named_parameters())
+    mismatched = [n for n, p in results[1]["model"].named_parameters()
+                  if not torch.equal(p, params[n])]
+    assert not mismatched, f"groups differ: {mismatched[:5]}"
+    versions = [f["version"] for f in fetched]
+    assert len(versions) >= 3 and versions[-1] == steps, versions
+    for f in fetched:
+        want = records[f["version"]]
+        assert f["params"] == want["params"], (
+            f"client v{f['version']} parameters differ: "
+            f"{[n for n in want['params'] if f['params'].get(n) != want['params'][n]][:5]}"
+        )
+        assert f["logits"] == want["logits"], f"client v{f['version']} logits differ"
+    relay_after_kill = relay_failovers.get() - kill["failovers_before"]
+    assert relay_after_kill >= 1, "the leaf never failed over after the root died"
+    log(f"moe serve path: {steps} steps on both groups all committed and bitwise "
+        f"equal; the client fetched versions {versions}, each bitwise equal to group "
+        f"0's parameters and eval logits; {relay_after_kill} relay failover(s) after "
+        "the root relay died")
+
+    steps0 = results[0]["steps"]
+    publishes = {v: seen[("publish", v)] for (k, v) in seen if k == "publish"}
+    relay_ms = {}
+    for r in relays:
+        for v in range(1, steps + 1):
+            t_node, t_pub = seen.get((r.replica_id(), v)), seen.get(("publisher", v))
+            if t_node is not None and t_pub is not None:
+                relay_ms.setdefault(r.replica_id(), {})[v] = (t_node - t_pub) * 1e3
+    step_ms = [s_["step_ms"] for s_ in steps0]
+    return {
+        "layers": cfg.n_layers,
+        "params": sum(p.numel() for p in params.values()),
+        "median_step_ms": statistics.median(step_ms),
+        "step_ms": step_ms,
+        "ring_ms": [s_["phases_ms"].get("ring", 0.0) for s_ in steps0],
+        "aux": [s_["aux"] for s_ in steps0],
+        "dropped": [s_["dropped"] for s_ in steps0],
+        "publish_snapshot_ms": [s_["publish"].get("snapshot_s", 0.0) * 1e3 for s_ in steps0],
+        "publishes": publishes,
+        "relay_available_after_publish_ms": relay_ms,
+        "root": root_id,
+        "fetches": [{k: v for k, v in f.items() if k not in ("params", "logits")}
+                    for f in fetched],
+        "relay_failovers": relay_failovers.get() - failovers0[0],
+        "relay_failovers_before_kill": kill["failovers_before"] - failovers0[0],
+        "client_failovers": client_failovers.get() - failovers0[1],
+        "peak_memory_gb": peak_gb,
+        "peak_host_rss_gb": host_peak[0],
+        "wall_s": wall,
+        "losses": losses,
+    }
+
+
+def log_moe_serve(card: str, msum: dict, layer: dict, small: dict) -> None:
+    """Phase 9's numbers, each line beside the card's name and power limit."""
+    log(f"{card} | moe path ({msum['layers']} layers, {msum['params']} parameters): "
+        f"median step {msum['median_step_ms']:.1f} ms (steps "
+        f"{[round(x, 1) for x in msum['step_ms']]}), ring phase ms "
+        f"{[round(x, 1) for x in msum['ring_ms']]}")
+    log(f"{card} | one MoE layer forward+backward {layer['moe_fwd_bwd_ms']:.3f} ms "
+        f"(forward {layer['moe_fwd_ms']:.3f}) against a dense FFN of the same width "
+        f"{layer['dense_fwd_bwd_ms']:.3f} ms (forward {layer['dense_fwd_ms']:.3f}); "
+        f"routing forward {layer['routing_fwd_ms']:.3f} ms = "
+        f"{100 * layer['routing_share_of_moe_fwd_bwd']:.2f} % of the MoE layer; "
+        "its forward+backward by operator (device ms, calls): "
+        + "; ".join(f"{n} {ms:.3f} x{c}" for n, ms, c in layer["moe_ops"]))
+    log(f"{card} | moe per step: aux {[round(a, 5) for a in msum['aux']]}, "
+        f"dropped share per layer {msum['dropped']}")
+    for v, p in sorted(msum["publishes"].items()):
+        log(f"{card} | publish v{v}: encode {p['encode_s'] * 1e3:.1f} ms, stage "
+            f"{p['stage_s'] * 1e3:.1f} ms, {p['bytes']} B")
+    log(f"{card} | publish snapshot on the training thread, ms by step: "
+        f"{[round(x, 1) for x in msum['publish_snapshot_ms']]}")
+    for relay, by_v in msum["relay_available_after_publish_ms"].items():
+        log(f"{card} | relay {relay}{' (root)' if relay == msum['root'] else ''}: "
+            "version available after its publish, ms: "
+            + ", ".join(f"v{v} {t:.1f}" for v, t in sorted(by_v.items())))
+    for f in msum["fetches"]:
+        log(f"{card} | client fetch v{f['version']} ({f['mode']}): {f['fetch_ms']:.1f} ms, "
+            f"{f['bytes']:.0f} B, {f['gb_per_s']:.3f} GB/s, staleness from publish "
+            f"{f['staleness_s']:.3f} s")
+    log(f"{card} | serving failovers: relay {msum['relay_failovers']} "
+        f"({msum['relay_failovers_before_kill']} before the root died), client "
+        f"{msum['client_failovers']}; peak memory {msum['peak_memory_gb']} GB, "
+        f"peak host memory {msum['peak_host_rss_gb']:.2f} GB resident, "
+        f"phase wall {msum['wall_s']:.1f} s")
+    log(f"{card} | MLP and CNN against the CPU: " + json.dumps(small))
+    log(f"moe serve path on {card}: " + json.dumps(msum))
+
+
 def main() -> int:
     try:
         import torch
@@ -1669,6 +2183,8 @@ def main() -> int:
     kernels = check_kernels()
     quant = check_quant_kernels()
     torch.cuda.empty_cache()
+    small = check_small_models()
+    moe_layer = time_moe_layer()
     fwd_bwd = time_forward_backward()
     # each layer of a group-step launches A, B and C once, and makes the
     # layout copies around them once
@@ -1694,11 +2210,13 @@ def main() -> int:
     def drive(path) -> "tuple":
         """Run one main path with every count at 0; its launches and twin
         calls, read just after."""
+        log(f"host memory before {path.__name__}: {release_host_memory():.2f} GB resident")
         for fn in counters:
             fn.launches = 0
         for fn in twins:
             fn.calls = 0
         summary = path()
+        log(f"host memory after {path.__name__}: {host_rss_gb():.2f} GB resident")
         return (summary, {name: fn.launches for fn, name in counters.items()},
                 {fn.__name__: fn.calls for fn in twins})
 
@@ -1797,6 +2315,14 @@ def main() -> int:
         f"{rsum['sharded_bytes']} B, peak memory {rsum['peak_memory_gb']} GB, "
         f"phase wall {rsum['wall_s']:.1f} s")
     log(f"reshard path on {card}: " + json.dumps(rsum))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    msum, m_launches, m_twin_calls = drive(moe_serve_path)
+    log(f"moe serve path launches {m_launches}, plain twin calls {m_twin_calls}")
+    assert all(m_launches[k] > 0 for k in ("flash_fwd", "flash_bwd_kv", "flash_bwd_q")), m_launches
+    assert all(n == 0 for n in m_twin_calls.values()), m_twin_calls
+    log_moe_serve(card, msum, moe_layer, small)
 
     sources = {
         "flash_fwd": ("torchft_tpu_torch/csrc/flash_fwd.cu",
@@ -1815,13 +2341,15 @@ def main() -> int:
     checks = {}
     for part in ("max_abs", "times", "bounds", "library"):
         checks[part] = {**kernels[part], **quant[part]}
-    # launches: the DDP, heal, DiLoCo, cold-restore and reshard paths'
-    # runs together (each counted from 0); E and F have no caller on any
+    # launches: the DDP, heal, DiLoCo, cold-restore, reshard and MoE
+    # serving paths' runs together (each counted from 0); E and F have no
+    # caller on any
     record = {"kernels": [
         {
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": sum(run[name] for run in (
-                launches, h_launches, d_launches, c_launches, r_launches)),
+                launches, h_launches, d_launches, c_launches, r_launches,
+                m_launches)),
             "max_abs_err": checks["max_abs"][name],
             "ms": checks["times"][name][0],
             "plain_ms": checks["times"][name][1],

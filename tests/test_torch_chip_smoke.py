@@ -147,3 +147,30 @@ def test_reshard_path_rehearsal_on_cpu():
     assert all(sw["layout"] == (1, 3, 1) for sw in summary["switch"].values())
     assert summary["switch_step"] == 4
     assert len(summary["losses"]) == 3 * 6 + 3
+
+
+def test_moe_serve_path_rehearsal_on_cpu():
+    """The MoE serving phase at a tiny f32 size: two groups train a 2-layer,
+    4-expert MoE transformer for 6 steps; group 0 publishes every committed
+    step into a root-then-leaf relay chain; the root dies once the leaf
+    serves v3.  The path asserts that every fetched version's parameters
+    and eval logits equal group 0's record bitwise, that the last version
+    was fetched, that the leaf failed over, and that the groups end equal."""
+    import dataclasses
+
+    cfg = dataclasses.replace(_tiny(), n_layers=2, n_experts=4, remat=True)
+    before = fa.flash_fwd_plain.calls
+    summary = chip_smoke.moe_serve_path(cfg, batch=1, seq=128, device="cpu",
+                                        failover_s=0.2)
+    fetches = summary["fetches"]
+    assert len(fetches) >= 3 and fetches[-1]["version"] == 6
+    assert fetches[0]["mode"] == "whole" and {f["mode"] for f in fetches[1:]} == {"delta"}
+    assert summary["relay_failovers"] >= 1
+    assert len(summary["losses"]) == 12
+    assert len(summary["aux"]) == 6 and all(a > 0 for a in summary["aux"])
+    assert all(len(d) == 2 and all(0 <= x <= 1 for x in d) for d in summary["dropped"])
+    assert set(summary["publishes"]) >= {1, 2, 3}
+    # 2 groups x 6 steps x 2 layers, each a forward and its recompute; the
+    # eval forwards of group 0's records and the client's fetches on top
+    assert fa.flash_fwd_plain.calls - before >= 2 * 6 * 2 * 2 + 2 * (6 + 3)
+    assert "TORCHFT_SERVING_FAILOVER_S" not in os.environ

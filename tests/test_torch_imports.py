@@ -71,15 +71,24 @@ loaded = sorted(
     if any(n == r or n.startswith(r + ".") for r in ("jax", "jaxlib", "optax", "torchft_tpu"))
 )
 import torch
+import dataclasses
 from torchft_tpu_torch import convert
+from torchft_tpu_torch.models import cnn, mlp, moe
 from torchft_tpu_torch.models import transformer as tf
 cfg = tf.TransformerConfig(vocab_size=64, d_model=32, n_heads=2, n_kv_heads=1,
                            d_ff=64, n_layers=1)
+moe_cfg = dataclasses.replace(cfg, n_experts=4)
 refused = {}
 for name, call in [
     ("Transformer", lambda: tf.Transformer(cfg)),
     ("init_params", lambda: tf.init_params(torch.Generator(), cfg)),
     ("params_from_jax", lambda: convert.params_from_jax({}, cfg)),
+    ("moe Transformer", lambda: tf.Transformer(moe_cfg)),
+    ("moe init_params", lambda: tf.init_params(torch.Generator(), moe_cfg)),
+    ("init_moe_params", lambda: moe.init_moe_params(
+        torch.Generator(), moe.MoEConfig(d_model=32, d_ff=64))),
+    ("mlp init_params", lambda: mlp.init_params(torch.Generator())),
+    ("cnn init_params", lambda: cnn.init_params(torch.Generator())),
 ]:
     try:
         call()
@@ -103,5 +112,8 @@ def test_import_loads_no_jax_and_entry_points_refuse_the_cpu():
     assert doc["loaded"] == []
     assert doc["cuda"] is False
     assert doc["refused"] == {
-        "Transformer": True, "init_params": True, "params_from_jax": True
+        "Transformer": True, "init_params": True, "params_from_jax": True,
+        "moe Transformer": True, "moe init_params": True,
+        "init_moe_params": True, "mlp init_params": True,
+        "cnn init_params": True,
     }

@@ -4,7 +4,10 @@ The JAX package keeps per-layer weights stacked on a leading ``[n_layers]``
 axis (``blocks.wq`` is ``[L, d_model, out]``, applied as ``h @ W``) and ties
 the output head to ``embed``.  The port keeps one :class:`Block` per layer
 with ``nn.Linear`` weights ``[out, in]``, so each matrix is transposed on
-the way in and out.  Both directions go through numpy.
+the way in and out.  A MoE block's leaves (``router [L, d, E]``,
+``w_gate``/``w_up [L, E, d, f]``, ``w_down [L, E, f, d]``) keep the JAX
+layout in the port, so they move as they are.  Both directions go through
+numpy.
 """
 
 from __future__ import annotations
@@ -14,11 +17,24 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-from torchft_tpu_torch.models.transformer import Transformer, TransformerConfig
+from torchft_tpu_torch.models.transformer import (
+    MOE_LEAVES,
+    Transformer,
+    TransformerConfig,
+)
 
 #: stacked JAX block leaves that are matrices (transposed to [out, in])
-_MATRICES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+_ATTN = ("wq", "wk", "wv", "wo")
+_FFN = ("w_gate", "w_up", "w_down")
 _NORMS = ("attn_norm", "mlp_norm")
+
+
+def _layout(cfg: TransformerConfig) -> "tuple":
+    """``(matrices, as-is leaves)`` of a block: the dense FFN's matrices
+    are transposed, a MoE block's leaves are not."""
+    if cfg.n_experts:
+        return _ATTN, _NORMS + MOE_LEAVES
+    return _ATTN + _FFN, _NORMS
 
 
 def params_from_jax(
@@ -37,10 +53,11 @@ def params_from_jax(
         put(model.embed, tree["embed"])
         put(model.final_norm, tree["final_norm"])
         blocks = tree["blocks"]
+        matrices, as_is = _layout(cfg)
         for layer, block in enumerate(model.blocks):
-            for name in _NORMS:
+            for name in as_is:
                 put(getattr(block, name), blocks[name][layer])
-            for name in _MATRICES:
+            for name in matrices:
                 put(getattr(block, name).weight, np.asarray(blocks[name][layer]).T)
     return model
 
@@ -57,11 +74,12 @@ def params_to_jax(
         return named[name].detach().float().cpu().numpy()
 
     blocks: Dict[str, Any] = {}
-    for name in _NORMS:
+    matrices, as_is = _layout(cfg)
+    for name in as_is:
         blocks[name] = np.stack(
             [get(f"blocks.{l}.{name}") for l in range(cfg.n_layers)]
         )
-    for name in _MATRICES:
+    for name in matrices:
         blocks[name] = np.stack(
             [get(f"blocks.{l}.{name}.weight").T for l in range(cfg.n_layers)]
         )

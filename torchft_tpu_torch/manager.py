@@ -13,10 +13,10 @@ What differs from the JAX package:
   back to the device its input leaf came from;
 - the allreduce zero-fills non-participants and divides by the live
   participant count (reference manager.py:416-417,447-454);
-- the durable store spill copies the state to the host under the
-  state-dict read lock before the spill worker encodes it, since torch
-  updates tensors in place (the JAX package's arrays are immutable);
-- not ported yet, and therefore absent: ``attach_weight_publisher``.
+- the durable store spill and the weight publish copy the state to the
+  host under the state-dict read lock before their workers encode it,
+  since torch updates tensors in place (the JAX package's arrays are
+  immutable).
 
 Heal: the default transport is ``HTTPTransport``.  With
 ``TORCHFT_HEAL_STREAM`` (on by default) a source stages its state as a
@@ -422,6 +422,14 @@ class Manager:
         # the last spill's snapshot_s (on the caller) and the spiller's
         # skipped count; the store's last_put holds encode and write
         self._spill_info: "Dict[str, Any]" = {}
+        # Weight serving (serving/publisher.py): the committed step's
+        # user state is published at the next round's start
+        # (attach_weight_publisher); publish_info() reports the caller's
+        # snapshot time beside the publisher's encode and staging
+        self._weight_publisher: "Optional[Any]" = None
+        self._publish_pending: "Optional[int]" = None
+        self._publish_executor: "Optional[ThreadPoolExecutor]" = None
+        self._publish_info: "Dict[str, Any]" = {}
         if self._frag_store is not None:
             attach = getattr(self._checkpoint_transport, "attach_store", None)
             if attach is not None:
@@ -493,6 +501,75 @@ class Manager:
 
     def layout_controller(self) -> "Optional[Any]":
         return self._layout
+
+    def attach_weight_publisher(self, publisher: Any) -> Any:
+        """Attach a :class:`~torchft_tpu_torch.serving.WeightPublisher`:
+        every COMMITTED step's user state is published as weight version
+        ``step`` into the serving tier.  Timing: the user applies the
+        optimizer update AFTER ``should_commit`` returns, so the snapshot
+        is taken at the start of the NEXT round — and flushed at
+        :meth:`shutdown` for the final step.  Attach to ONE rank per job,
+        typically group 0's rank 0; the publisher's versions fan out
+        through the lighthouse-synthesized distribution tree.  Publish
+        failures are logged, never allowed to fail training.  Returns the
+        publisher for chaining."""
+        self._weight_publisher = publisher
+        return publisher
+
+    def _flush_pending_publish(self, wait: bool = False) -> None:
+        """Publish the last committed step's user state, if one is
+        pending (called from the next round's start and from shutdown —
+        both points where the user's post-commit optimizer update has
+        fully materialized).
+
+        Only the SNAPSHOT runs on the caller: under the state-dict read
+        lock every leaf is copied to the host (torch updates tensors in
+        place, so the publisher must not encode the live tensors).  The
+        encode + staging + HTTP advertise run on a single-worker executor
+        so a multi-GB publish never turns the publishing rank into the
+        fleet's straggler at every ``start_quorum``.  One worker keeps
+        versions ordered; ``wait`` (shutdown) drains the queue so the
+        final version is staged before the transports die."""
+        version, self._publish_pending = self._publish_pending, None
+        pub = self._weight_publisher
+        if pub is None:
+            return
+        if version is not None:
+            t0 = time.perf_counter()
+            try:
+                with self._state_dict_lock.r_lock():
+                    state = tree_map(ser.host_copy, {
+                        k: fn() for k, fn in self._user_state_dicts.items()
+                    })
+            except Exception:  # noqa: BLE001 - serving never fails training
+                self._logger.exception("weight-publish snapshot failed")
+                return
+            self._publish_info = {
+                "version": version, "snapshot_s": time.perf_counter() - t0,
+            }
+            if self._publish_executor is None:
+                self._publish_executor = ThreadPoolExecutor(
+                    max_workers=1, thread_name_prefix="tft_weight_publish"
+                )
+
+            def _do_publish() -> None:
+                try:
+                    pub.publish(state, version=version)
+                except Exception:  # noqa: BLE001 - never fails training
+                    self._logger.exception(
+                        "weight publish failed (serving tier degraded "
+                        "this step)"
+                    )
+
+            self._publish_executor.submit(_do_publish)
+        if wait and self._publish_executor is not None:
+            self._publish_executor.shutdown(wait=True)
+            self._publish_executor = None
+
+    def publish_info(self) -> "Dict[str, Any]":
+        """The last weight publish's ``version`` and ``snapshot_s`` (the
+        host copy on the caller); empty before the first."""
+        return dict(self._publish_info)
 
     def _flush_pending_spill(self, wait: bool = False) -> None:
         """Spill the last committed step to the durable fragment store,
@@ -582,6 +659,9 @@ class Manager:
         # should_commit and this call) — spill it as that step's version
         # before the new round begins.
         self._flush_pending_spill()
+        # Weight serving: publish the previous round's committed state
+        # (attach_weight_publisher; no-op when unattached).
+        self._flush_pending_publish()
         # Straggler telemetry: piggyback (step, in-flight op) on the native
         # manager's lighthouse heartbeats, so the lighthouse can compute
         # per-replica step lag and straggler scores while this replica is
@@ -1503,6 +1583,10 @@ class Manager:
             # replica at this step holds), off the hot path on the single
             # spill worker.
             self._spill_pending = self._step
+            # Weight serving: publish the committed step at the next
+            # round's start, after the user's optimizer update
+            # (attach_weight_publisher; no-op when unattached).
+            self._publish_pending = self._step
         else:
             self._commit_failures += 1
             if (
@@ -1753,6 +1837,9 @@ class Manager:
             self._spill_info["skipped"] = self._spiller.skipped
             self._spiller.shutdown()
             self._spiller = None
+        # Final committed step's weight version, if a publisher is
+        # attached: drain before the transports die.
+        self._flush_pending_publish(wait=True)
         legs = [
             lambda: self._checkpoint_transport.shutdown(wait=wait),
             self._client.close,

@@ -2,7 +2,8 @@
 
 PyTorch port of ``torchft_tpu/models/transformer.py``: bf16 compute with
 f32 parameters, RMSNorm, rotary embeddings (half-split), GQA attention,
-SwiGLU FFN and a tied embedding/output head.  The JAX package stacks the
+SwiGLU FFN (or, with ``n_experts > 0``, the MoE layer of
+``models/moe.py``) and a tied embedding/output head.  The JAX package stacks the
 layers' weights on a leading ``[n_layers]`` axis and scans over them; here
 each layer is a :class:`Block` module and the forward loops over them
 (``convert.py`` maps between the two layouts).  Attention runs through
@@ -16,8 +17,8 @@ activation checkpointing keeps every matmul's output (``aten.mm``,
 ``addmm``, ``bmm``) and kernel A's (the flash forward op) and recomputes
 only the elementwise work between them.
 
-Not ported yet: MoE, meshes and sharding, the pipeline and ring/Ulysses
-attention.
+Not ported yet: meshes and sharding (expert parallelism included), the
+pipeline and ring/Ulysses attention.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from torchft_tpu_torch.models.moe import MoEConfig, moe_ffn_stats
 from torchft_tpu_torch.ops.flash_attention import flash_attention, flash_fwd_op
 from torchft_tpu_torch.ops.ring_attention import dense_attention
 
@@ -55,6 +57,12 @@ class TransformerConfig:
     remat: bool = True
     remat_policy: str = "full"
     attn_impl: str = "auto"
+    # n_experts > 0 replaces the dense FFN with a MoE layer (top-k routed;
+    # see models/moe.py); loss_fn adds moe_aux_weight times its aux loss
+    n_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_aux_weight: float = 0.01
 
     @property
     def head_dim(self) -> int:
@@ -129,10 +137,32 @@ def _resolve_attn_impl(cfg: TransformerConfig, seq_len: int, device: torch.devic
     return "dense"
 
 
+def _moe_cfg(cfg: TransformerConfig) -> MoEConfig:
+    return MoEConfig(
+        d_model=cfg.d_model,
+        d_ff=cfg.d_ff,
+        n_experts=cfg.n_experts,
+        top_k=cfg.moe_top_k,
+        capacity_factor=cfg.moe_capacity_factor,
+        dtype=cfg.dtype,
+        param_dtype=cfg.param_dtype,
+    )
+
+
+#: the MoE block's parameters, in the JAX package's layout (router
+#: ``[d, E]``, experts ``[E, d, f]`` and ``[E, f, d]``)
+MOE_LEAVES = ("router", "w_gate", "w_up", "w_down")
+
+
 class Block(nn.Module):
-    """One decoder layer: attention then SwiGLU FFN, both pre-norm with
-    residuals.  Weights are ``nn.Linear`` ``[out, in]`` in the param dtype
-    and run in the activation dtype."""
+    """One decoder layer: attention then the FFN, both pre-norm with
+    residuals; ``forward`` returns ``(x, aux)``, aux being the MoE layer's
+    load-balance loss (0 for a dense FFN).  Dense weights are
+    ``nn.Linear`` ``[out, in]`` in the param dtype and run in the
+    activation dtype; MoE weights keep the JAX layout (:data:`MOE_LEAVES`).
+    A MoE block keeps its last forward's aux loss and dropped share of
+    token choices in ``moe_stats`` (``{"aux", "dropped"}``, detached
+    scalars)."""
 
     def __init__(self, cfg: TransformerConfig, device: torch.device) -> None:
         super().__init__()
@@ -146,9 +176,18 @@ class Block(nn.Module):
         self.wv = nn.Linear(e, nkv * hd, **kw)
         self.wo = nn.Linear(nh * hd, e, **kw)
         self.mlp_norm = nn.Parameter(torch.ones(e, device=device, dtype=cfg.param_dtype))
-        self.w_gate = nn.Linear(e, f, **kw)
-        self.w_up = nn.Linear(e, f, **kw)
-        self.w_down = nn.Linear(f, e, **kw)
+        if cfg.n_experts:
+            self.moe_cfg = _moe_cfg(cfg)
+            ne = cfg.n_experts
+            for name, shape in zip(MOE_LEAVES, ((e, ne), (ne, e, f), (ne, e, f), (ne, f, e))):
+                self.register_parameter(name, nn.Parameter(
+                    torch.empty(shape, device=device, dtype=cfg.param_dtype)
+                ))
+            self.moe_stats: "Dict[str, torch.Tensor]" = {}
+        else:
+            self.w_gate = nn.Linear(e, f, **kw)
+            self.w_up = nn.Linear(e, f, **kw)
+            self.w_down = nn.Linear(f, e, **kw)
 
     def _attention(self, q, k, v) -> torch.Tensor:
         impl = _resolve_attn_impl(self.cfg, q.shape[1], q.device)
@@ -161,7 +200,9 @@ class Block(nn.Module):
             "(ring and ulysses are not ported yet)"
         )
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, positions: torch.Tensor
+    ) -> "Tuple[torch.Tensor, torch.Tensor]":
         cfg = self.cfg
         act = cfg.dtype
         b, t, _ = x.shape
@@ -175,9 +216,15 @@ class Block(nn.Module):
         attn = self._attention(q, k, v).reshape(b, t, nh * hd)
         x = x + F.linear(attn, self.wo.weight.to(act))
         h = _rms_norm(x, self.mlp_norm)
+        if cfg.n_experts:
+            params = {n: getattr(self, n) for n in MOE_LEAVES}
+            y, aux, dropped = moe_ffn_stats(h, params, self.moe_cfg)
+            self.moe_stats = {"aux": aux.detach(), "dropped": dropped}
+            return x + y, aux
         gate = F.silu(F.linear(h, self.w_gate.weight.to(act)))
         up = F.linear(h, self.w_up.weight.to(act))
-        return x + F.linear(gate * up, self.w_down.weight.to(act))
+        x = x + F.linear(gate * up, self.w_down.weight.to(act))
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 class Transformer(nn.Module):
@@ -198,7 +245,11 @@ class Transformer(nn.Module):
             torch.ones(cfg.d_model, device=dev, dtype=cfg.param_dtype)
         )
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+    def forward(
+        self, tokens: torch.Tensor, return_aux: bool = False
+    ) -> "torch.Tensor | Tuple[torch.Tensor, torch.Tensor]":
+        """``return_aux`` also returns the layers' summed MoE load-balance
+        loss (0 for a dense FFN)."""
         cfg = self.cfg
         if cfg.remat and cfg.remat_policy not in ("full", "dots"):
             raise ValueError(
@@ -210,12 +261,17 @@ class Transformer(nn.Module):
         # casting the table first)
         x = self.embed[tokens].to(cfg.dtype)
         positions = torch.arange(t, device=tokens.device)
+        aux_sum = torch.zeros((), dtype=torch.float32, device=tokens.device)
         for block in self.blocks:
             if cfg.remat and self.training:
-                x = checkpoint(block, x, positions, use_reentrant=False, **kw)
+                x, aux = checkpoint(block, x, positions, use_reentrant=False, **kw)
             else:
-                x = block(x, positions)
-        return self._head(x)
+                x, aux = block(x, positions)
+            aux_sum = aux_sum + aux
+        logits = self._head(x)
+        if return_aux:
+            return logits, aux_sum
+        return logits
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
         """Final norm + tied output head with f32 logits.
@@ -239,35 +295,45 @@ def init_params(
 ) -> Transformer:
     """A :class:`Transformer` initialised as the JAX package initialises its
     pytree: projections ~ N(0, 1/fan_in), the embedding ~ N(0, 0.02^2),
-    norms at 1.  Values are drawn on the CPU from ``generator`` (a CPU
+    norms at 1; MoE router and experts ~ N(0, 1/fan_in) in their JAX
+    layout.  Values are drawn on the CPU from ``generator`` (a CPU
     generator), so a seed gives the same weights on every device."""
     model = Transformer(cfg, device)
+
+    def normal(param: torch.Tensor, fan_in: int) -> None:
+        param.copy_(torch.randn(param.shape, generator=generator) / fan_in**0.5)
+
     with torch.no_grad():
         model.embed.copy_(
             torch.randn(model.embed.shape, generator=generator) * 0.02
         )
         for block in model.blocks:
-            for lin in (
-                block.wq, block.wk, block.wv, block.wo,
-                block.w_gate, block.w_up, block.w_down,
-            ):
-                fan_in = lin.weight.shape[1]
-                lin.weight.copy_(
-                    torch.randn(lin.weight.shape, generator=generator)
-                    / fan_in**0.5
-                )
+            for lin in (block.wq, block.wk, block.wv, block.wo):
+                normal(lin.weight, lin.weight.shape[1])
+            if cfg.n_experts:
+                for name in MOE_LEAVES:
+                    param = getattr(block, name)
+                    normal(param, param.shape[-2])
+            else:
+                for lin in (block.w_gate, block.w_up, block.w_down):
+                    normal(lin.weight, lin.weight.shape[1])
     return model
 
 
 def loss_fn(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
-    """Next-token cross-entropy, mean over all positions but the last."""
-    logits = model(tokens)[:, :-1]
+    """Next-token cross-entropy, mean over all positions but the last.
+    MoE configs add the weighted load-balance auxiliary loss."""
+    logits, aux = model(tokens, return_aux=True)
+    logits = logits[:, :-1]
     targets = tokens[:, 1:]
     # fused NLL: logsumexp(logits) - logit[target] == -log_softmax[target]
     # without materializing the [B, T, V] log-probability tensor
     lse = torch.logsumexp(logits, dim=-1)
     picked = torch.gather(logits, -1, targets[..., None])[..., 0]
-    return (lse - picked).mean()
+    loss = (lse - picked).mean()
+    if model.cfg.n_experts:
+        loss = loss + model.cfg.moe_aux_weight * aux
+    return loss
 
 
 def make_grad_step(
@@ -292,6 +358,7 @@ def make_grad_step(
 
 
 __all__ = [
+    "MOE_LEAVES",
     "Block",
     "Transformer",
     "TransformerConfig",
