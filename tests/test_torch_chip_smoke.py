@@ -7,6 +7,7 @@ import shutil
 import subprocess
 import sys
 
+import pytest
 import torch
 
 import chip_smoke
@@ -55,6 +56,49 @@ def test_diloco_path_rehearsal_on_cpu():
     # 4 survivor syncs + 2 of the first group1 + 2 of the rejoiner
     assert pq.quantize_int8_plain.calls - calls == 8
     assert all(x == x for x in summary["losses"])
+
+
+def test_cp_path_rehearsal_on_cpu():
+    """Phase 10 at a tiny f32 size through the same spawn code: four
+    processes (two groups x cp = 2), a lighthouse here, a Manager per
+    process; the path itself asserts three commits everywhere, the ring
+    against the one-device model and Ulysses at step 0, and all four
+    processes' parameters and AdamW state bitwise equal."""
+    cfg = tf.TransformerConfig(
+        vocab_size=256, d_model=64, n_heads=2, n_kv_heads=1, d_ff=128,
+        n_layers=2, max_seq_len=256, dtype=torch.float32, remat=False,
+        attn_impl="ring",
+    )
+    summary = chip_smoke.cp_path(cfg, batch=1, seq=256, device="cpu", timeout=120.0)
+    assert summary["processes"] == 4
+    assert len(summary["steps"]) == 12  # 3 steps x 4 processes
+    # T_local = 128: a layer's forward shifts one K and one V chunk of
+    # 128 x 1 head x 32 f32 (16 KiB each); its backward shifts K, V and
+    # their f32 gradient accumulators, then the accumulators home: 8
+    # chunks a layer, 2 layers
+    assert summary["exchange_bytes_per_step"] == 2 * 8 * 16384
+    # f32 on the CPU: ring, Ulysses and the one-device model agree with
+    # the f32 dense model to rounding
+    checks = summary["checks"]
+    assert checks["ring_loss_rel_err"] < 1e-5 and checks["ulysses_loss_rel_err"] < 1e-5
+    for key in ("one_device_to_f32", "ring_to_f32", "ulysses_to_f32",
+                "ring_to_one_device", "ulysses_to_ring"):
+        assert checks[key]["err"] < 1e-5, (key, checks[key])
+    # kernels run as their twins in the children on CPU tensors
+    assert summary["launches"] == {"flash_fwd": 0, "flash_bwd_kv": 0, "flash_bwd_q": 0}
+    assert all(n > 0 for n in summary["twin_calls"].values())
+
+
+def test_cp_path_fails_when_a_child_fails():
+    """A child's exception reaches the parent, which kills the rest: a
+    sequence of 255 tokens does not split over cp = 2."""
+    cfg = tf.TransformerConfig(
+        vocab_size=256, d_model=64, n_heads=2, n_kv_heads=1, d_ff=128,
+        n_layers=1, max_seq_len=256, dtype=torch.float32, remat=False,
+        attn_impl="ring",
+    )
+    with pytest.raises(RuntimeError, match="do not split over"):
+        chip_smoke.cp_path(cfg, batch=1, seq=255, device="cpu", timeout=60.0)
 
 
 def _run(args, cwd, env):

@@ -7,8 +7,20 @@ SwiGLU FFN (or, with ``n_experts > 0``, the MoE layer of
 layers' weights on a leading ``[n_layers]`` axis and scans over them; here
 each layer is a :class:`Block` module and the forward loops over them
 (``convert.py`` maps between the two layouts).  Attention runs through
-``attn_impl``: ``"flash"`` (the hand-written CUDA kernels), ``"dense"``, or
-``"auto"`` (flash on CUDA when ``T % 128 == 0``, else dense).
+``attn_impl``: ``"flash"`` (the hand-written CUDA kernels), ``"dense"``,
+``"ring"`` or ``"ulysses"`` (sequence parallel over the inner mesh's ``cp``
+axis), or ``"auto"`` (ring when the mesh has ``cp > 1``, else flash on CUDA
+when ``T % 128 == 0``, else dense).
+
+Context parallelism.  With an inner mesh (``parallel/axis.py``
+``InnerMesh``; ``ManagedDeviceMesh.mesh``), :func:`loss_fn` and
+:func:`make_grad_step` take the replica group's whole ``[B, T]`` token
+array; each rank slices its batch rows (``dp``) and its sequence chunk
+(``cp``) with the next-token targets that cross into the next chunk, runs
+the model on the chunk at global rotary positions, and the gradients of the
+replicated weights are summed over the inner axes (``jit`` sums them
+implicitly in the JAX package).  MoE and ``remat_policy="dots"`` under an
+inner mesh are not ported yet (ROADMAP §A 3(c)).
 
 Rematerialization: ``remat=True`` recomputes each block in the backward
 (``torch.utils.checkpoint``).  ``remat_policy="full"`` keeps only the block
@@ -17,14 +29,14 @@ activation checkpointing keeps every matmul's output (``aten.mm``,
 ``addmm``, ``bmm``) and kernel A's (the flash forward op) and recomputes
 only the elementwise work between them.
 
-Not ported yet: meshes and sharding (expert parallelism included), the
-pipeline and ring/Ulysses attention.
+Not ported yet: weight sharding (fsdp, tp, expert parallelism) and the
+pipeline.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -37,7 +49,16 @@ from torch.utils.checkpoint import (
 
 from torchft_tpu_torch.models.moe import MoEConfig, moe_ffn_stats
 from torchft_tpu_torch.ops.flash_attention import flash_attention, flash_fwd_op
-from torchft_tpu_torch.ops.ring_attention import dense_attention
+from torchft_tpu_torch.ops.ring_attention import (
+    dense_attention,
+    ring_attention_local,
+)
+from torchft_tpu_torch.ops.ulysses import ulysses_attention_local
+
+
+#: the inner mesh's axis names for the batch and the sequence
+DP_AXIS = "dp"
+CP_AXIS = "cp"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,6 +77,7 @@ class TransformerConfig:
     # "full" keeps the block inputs only, "dots" also every matmul output
     remat: bool = True
     remat_policy: str = "full"
+    # "auto", "flash", "dense", "ring" or "ulysses" (module docstring)
     attn_impl: str = "auto"
     # n_experts > 0 replaces the dense FFN with a MoE layer (top-k routed;
     # see models/moe.py); loss_fn adds moe_aux_weight times its aux loss
@@ -129,9 +151,17 @@ def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tenso
     return out.to(x.dtype)
 
 
-def _resolve_attn_impl(cfg: TransformerConfig, seq_len: int, device: torch.device) -> str:
+def _cp_size(mesh: Any) -> int:
+    return mesh.axis_size(CP_AXIS) if mesh is not None else 1
+
+
+def _resolve_attn_impl(
+    cfg: TransformerConfig, seq_len: int, device: torch.device, mesh: Any = None
+) -> str:
     if cfg.attn_impl != "auto":
         return cfg.attn_impl
+    if _cp_size(mesh) > 1:
+        return "ring"
     if device.type == "cuda" and seq_len % 128 == 0:
         return "flash"
     return "dense"
@@ -189,20 +219,36 @@ class Block(nn.Module):
             self.w_up = nn.Linear(e, f, **kw)
             self.w_down = nn.Linear(f, e, **kw)
 
-    def _attention(self, q, k, v) -> torch.Tensor:
-        impl = _resolve_attn_impl(self.cfg, q.shape[1], q.device)
+    def _attention(self, q, k, v, mesh: Any = None) -> torch.Tensor:
+        cfg = self.cfg
+        impl = _resolve_attn_impl(cfg, q.shape[1], q.device, mesh)
+        if impl in ("ring", "ulysses"):
+            if mesh is None or CP_AXIS not in mesh.axis_names:
+                raise ValueError(
+                    f"{impl} attention requires a mesh with a {CP_AXIS!r} "
+                    f"axis; got {mesh!r} (use attn_impl='dense' or 'flash')"
+                )
+            local_fn = ring_attention_local if impl == "ring" else ulysses_attention_local
+            return local_fn(q, k, v, mesh.axis(CP_AXIS), causal=True)
+        if impl in ("flash", "dense") and _cp_size(mesh) > 1:
+            raise ValueError(
+                f"attn_impl={impl!r} needs the sequence unsharded; on a "
+                f"{CP_AXIS!r} mesh use 'ring' or 'ulysses'"
+            )
         if impl == "flash":
             return flash_attention(q, k, v, causal=True)
         if impl == "dense":
             return dense_attention(q, k, v, causal=True)
         raise ValueError(
-            f"unknown attn_impl {impl!r}; expected 'dense', 'flash' or 'auto' "
-            "(ring and ulysses are not ported yet)"
+            f"unknown attn_impl {impl!r}; "
+            "expected 'dense', 'flash', 'ring', 'ulysses' or 'auto'"
         )
 
     def forward(
-        self, x: torch.Tensor, positions: torch.Tensor
+        self, x: torch.Tensor, positions: torch.Tensor, mesh: Any = None
     ) -> "Tuple[torch.Tensor, torch.Tensor]":
+        """``mesh`` is the inner mesh ring/Ulysses attention runs over;
+        ``x`` is then this rank's chunk and ``positions`` global."""
         cfg = self.cfg
         act = cfg.dtype
         b, t, _ = x.shape
@@ -213,7 +259,7 @@ class Block(nn.Module):
         v = F.linear(h, self.wv.weight.to(act)).reshape(b, t, nkv, hd)
         q = _rope(q, positions, cfg.rope_theta)
         k = _rope(k, positions, cfg.rope_theta)
-        attn = self._attention(q, k, v).reshape(b, t, nh * hd)
+        attn = self._attention(q, k, v, mesh).reshape(b, t, nh * hd)
         x = x + F.linear(attn, self.wo.weight.to(act))
         h = _rms_norm(x, self.mlp_norm)
         if cfg.n_experts:
@@ -246,27 +292,34 @@ class Transformer(nn.Module):
         )
 
     def forward(
-        self, tokens: torch.Tensor, return_aux: bool = False
+        self, tokens: torch.Tensor, return_aux: bool = False, mesh: Any = None
     ) -> "torch.Tensor | Tuple[torch.Tensor, torch.Tensor]":
         """``return_aux`` also returns the layers' summed MoE load-balance
-        loss (0 for a dense FFN)."""
+        loss (0 for a dense FFN).  With an inner ``mesh`` whose ``cp`` axis
+        is larger than 1, ``tokens`` is this rank's sequence chunk: rotary
+        positions start at ``cp_rank * T_local`` and attention runs over
+        the axis."""
         cfg = self.cfg
         if cfg.remat and cfg.remat_policy not in ("full", "dots"):
             raise ValueError(
                 f"unknown remat_policy {cfg.remat_policy!r}; expected 'full' or 'dots'"
             )
+        _check_mesh(cfg, mesh)
         kw = {"context_fn": _dots_context} if cfg.remat_policy == "dots" else {}
         b, t = tokens.shape
         # _embed: a gather of the activation-dtype table (same values as
         # casting the table first)
         x = self.embed[tokens].to(cfg.dtype)
-        positions = torch.arange(t, device=tokens.device)
+        offset = mesh.axis_index(CP_AXIS) * t if mesh is not None else 0
+        positions = offset + torch.arange(t, device=tokens.device)
         aux_sum = torch.zeros((), dtype=torch.float32, device=tokens.device)
         for block in self.blocks:
             if cfg.remat and self.training:
-                x, aux = checkpoint(block, x, positions, use_reentrant=False, **kw)
+                x, aux = checkpoint(
+                    block, x, positions, mesh, use_reentrant=False, **kw
+                )
             else:
-                x, aux = block(x, positions)
+                x, aux = block(x, positions, mesh)
             aux_sum = aux_sum + aux
         logits = self._head(x)
         if return_aux:
@@ -320,39 +373,100 @@ def init_params(
     return model
 
 
-def loss_fn(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
-    """Next-token cross-entropy, mean over all positions but the last.
-    MoE configs add the weighted load-balance auxiliary loss."""
-    logits, aux = model(tokens, return_aux=True)
-    logits = logits[:, :-1]
-    targets = tokens[:, 1:]
-    # fused NLL: logsumexp(logits) - logit[target] == -log_softmax[target]
-    # without materializing the [B, T, V] log-probability tensor
+def _check_mesh(cfg: TransformerConfig, mesh: Any) -> None:
+    """What the port runs under an inner mesh so far: ``dp`` and ``cp``
+    axes, a dense FFN, full or no remat (ROADMAP §A 3(c) for the rest)."""
+    if mesh is None or mesh.size == 1:
+        return
+    known = mesh.axis_size(DP_AXIS) * mesh.axis_size(CP_AXIS)
+    if known != mesh.size:
+        raise NotImplementedError(
+            f"inner mesh {mesh!r}: only the {DP_AXIS!r} and "
+            f"{CP_AXIS!r} axes are ported (ROADMAP §A 3(c))"
+        )
+    if cfg.n_experts:
+        raise NotImplementedError(
+            "MoE under an inner mesh needs the global routing statistics "
+            "(ROADMAP §A 3(c))"
+        )
+    if cfg.remat and cfg.remat_policy == "dots" and _cp_size(mesh) > 1:
+        raise NotImplementedError(
+            "remat_policy='dots' under context parallelism (ROADMAP §A 3(c)); "
+            "use 'full' or remat=False"
+        )
+
+
+def _nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Per-position next-token NLL: logsumexp(logits) - logit[target] ==
+    -log_softmax[target] without materializing the [B, T, V]
+    log-probability tensor."""
     lse = torch.logsumexp(logits, dim=-1)
     picked = torch.gather(logits, -1, targets[..., None])[..., 0]
-    loss = (lse - picked).mean()
-    if model.cfg.n_experts:
-        loss = loss + model.cfg.moe_aux_weight * aux
-    return loss
+    return lse - picked
+
+
+def loss_fn(
+    model: Transformer, tokens: torch.Tensor, mesh: Any = None
+) -> torch.Tensor:
+    """Next-token cross-entropy, mean over all positions but the last.
+    MoE configs add the weighted load-balance auxiliary loss.
+
+    With an inner ``mesh``, ``tokens`` is the replica group's whole
+    ``[B, T]`` array and the result is this rank's share: its rows
+    (``dp``) and chunk (``cp``), whose targets run one position into the
+    next chunk (only the last ``cp`` rank drops the final position),
+    summed and divided by the global count ``B * (T - 1)``.  The shares
+    over the mesh sum to the loss."""
+    _check_mesh(model.cfg, mesh)
+    if mesh is None or mesh.size == 1:
+        logits, aux = model(tokens, return_aux=True, mesh=mesh)
+        loss = _nll(logits[:, :-1], tokens[:, 1:]).mean()
+        if model.cfg.n_experts:
+            loss = loss + model.cfg.moe_aux_weight * aux
+        return loss
+    cfg = model.cfg
+    b, t = tokens.shape
+    dp, cp = mesh.axis_size(DP_AXIS), mesh.axis_size(CP_AXIS)
+    if b % dp or t % cp:
+        raise ValueError(f"tokens {tuple(tokens.shape)} do not split over dp={dp}, cp={cp}")
+    bl, tl = b // dp, t // cp
+    first = mesh.axis_index(DP_AXIS) * bl
+    rows = tokens[first:first + bl]
+    start = mesh.axis_index(CP_AXIS) * tl
+    chunk = rows[:, start:start + tl]
+    targets = rows[:, start + 1:start + tl + 1]
+    logits = model(chunk, mesh=mesh)
+    return _nll(logits[:, :targets.shape[1]], targets).sum() / (b * (t - 1))
 
 
 def make_grad_step(
-    cfg: TransformerConfig,
+    cfg: TransformerConfig, mesh: Any = None
 ) -> "Callable[[Transformer, torch.Tensor], Tuple[torch.Tensor, Dict[str, torch.Tensor]]]":
     """A ``(model, tokens) -> (loss, grads)`` step — the FT-DDP shape:
     ``Manager.allreduce`` averages the grads across replica groups, then the
-    optimizer steps.  ``grads`` maps parameter names to gradients."""
+    optimizer steps.  ``grads`` maps parameter names to gradients.
+
+    With an inner ``mesh`` (see :func:`loss_fn`), every rank of the group
+    returns the global loss and the gradients summed over the mesh's axes,
+    the same bits on every rank."""
 
     def step(
         model: Transformer, tokens: torch.Tensor
     ) -> "Tuple[torch.Tensor, Dict[str, torch.Tensor]]":
         model.zero_grad(set_to_none=True)
-        loss = loss_fn(model, tokens)
+        loss = loss_fn(model, tokens, mesh)
         loss.backward()
+        if mesh is None or mesh.size == 1:
+            grads = {
+                n: p.grad for n, p in model.named_parameters() if p.grad is not None
+            }
+            return loss.detach(), grads
         grads = {
-            n: p.grad for n, p in model.named_parameters() if p.grad is not None
+            n: p.grad if p.grad is not None else torch.zeros_like(p)
+            for n, p in model.named_parameters()
         }
-        return loss.detach(), grads
+        mesh.psum_(list(grads.values()))
+        return mesh.psum(loss), grads
 
     return step
 

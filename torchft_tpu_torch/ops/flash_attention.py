@@ -24,6 +24,12 @@ GLOBAL positions ``(q_off, k_off)`` (so a ring composition can reuse the
 kernels), all-masked rows giving ``O = 0`` and ``lse ~ -inf``,
 ``l = max(l, 1e-30)``, and ``p``/``dS`` cast to the input type before their
 products.  ``delta = rowsum(dO * O)`` is a plain torch op, as in JAX.
+
+:func:`ring_flash_local` composes the three kernels with context
+parallelism, as the JAX package's function of that name does: kernel A on
+each (local Q x visiting K/V) tile at global offsets, merged in f32, and B
+and C per tile against the merged logsumexp.  Each wrapper also counts the
+launches it made at a non-zero offset (``offset_launches``).
 """
 
 from __future__ import annotations
@@ -190,10 +196,13 @@ def flash_fwd(
         )
     _kernels.check("flash_fwd", rc)
     _count(flash_fwd, "launches")
+    if q_off or k_off:
+        _count(flash_fwd, "offset_launches")
     return o, lse
 
 
 flash_fwd.launches = 0
+flash_fwd.offset_launches = 0  # of them, tiles at a non-zero offset
 
 
 def flash_bwd_kv(
@@ -220,10 +229,13 @@ def flash_bwd_kv(
         )
     _kernels.check("flash_bwd_kv", rc)
     _count(flash_bwd_kv, "launches")
+    if q_off or k_off:
+        _count(flash_bwd_kv, "offset_launches")
     return dk, dv
 
 
 flash_bwd_kv.launches = 0
+flash_bwd_kv.offset_launches = 0  # of them, tiles at a non-zero offset
 
 
 def flash_bwd_q(
@@ -249,10 +261,13 @@ def flash_bwd_q(
         )
     _kernels.check("flash_bwd_q", rc)
     _count(flash_bwd_q, "launches")
+    if q_off or k_off:
+        _count(flash_bwd_q, "offset_launches")
     return dq
 
 
 flash_bwd_q.launches = 0
+flash_bwd_q.offset_launches = 0  # of them, tiles at a non-zero offset
 
 
 # ---------------------------------------------------------------------------
@@ -345,6 +360,108 @@ def flash_attention(
     return _from3(out3, b, h)
 
 
+# ---------------------------------------------------------------------------
+# ring composition: flash tiles inside sequence-parallel ring attention
+# ---------------------------------------------------------------------------
+
+
+class _RingFlash(torch.autograd.Function):
+    """``ring_flash_local`` of the JAX package: the forward runs kernel A on
+    each (local Q x visiting K/V) tile at global offsets and merges the
+    tiles' ``(O, lse)`` in f32; the backward runs B and C per tile against
+    the merged lse, and the f32 dK/dV accumulators rotate with K/V."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, axis, causal: bool):  # type: ignore[override]
+        idx, size = axis.rank, axis.size
+        b, tq, h, d = q.shape
+        tk = k.shape[1]
+        scale = 1.0 / math.sqrt(d)
+        q3 = _to3(q)
+        o3 = torch.zeros(q3.shape, dtype=torch.float32, device=q.device)
+        lse = torch.full(q3.shape[:2], _NEG_INF, dtype=torch.float32, device=q.device)
+        kc, vc = k, v
+        for s in range(size):
+            kv_idx = (idx - s) % size
+            ke, ve = _expand_gqa(kc, vc, h)
+            o_s, lse_s = flash_fwd(
+                q3, _to3(ke), _to3(ve), scale, causal, idx * tq, kv_idx * tk
+            )
+            # blockwise softmax combination over chunks (f32); a tile whose
+            # rows see no key has lse ~ -1e30 and weighs exp(-huge) = 0
+            m = torch.maximum(lse, lse_s)
+            w1 = torch.exp(lse - m)
+            w2 = torch.exp(lse_s - m)
+            denom = torch.clamp_min(w1 + w2, 1e-30)
+            o3 = o3 * (w1 / denom)[..., None] + o_s.float() * (w2 / denom)[..., None]
+            lse = m + torch.log(denom)
+            if s < size - 1:  # the last shift would carry nothing back
+                kc, vc = axis.shift((kc, vc))
+        o = _from3(o3.to(q.dtype), b, h)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.axis, ctx.causal = axis, causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):  # type: ignore[override]
+        q, k, v, o, lse = ctx.saved_tensors
+        axis, causal = ctx.axis, ctx.causal
+        idx, size = axis.rank, axis.size
+        b, tq, h, d = q.shape
+        tk, hkv = k.shape[1], k.shape[2]
+        rep = h // hkv
+        scale = 1.0 / math.sqrt(d)
+        q3, o3, do3 = _to3(q), _to3(o), _to3(do.to(q.dtype))
+        # loop-invariant: rowsum(dO * O), computed once for all ring steps
+        delta = (do3.float() * o3.float()).sum(dim=-1)
+        dq3 = torch.zeros(q3.shape, dtype=torch.float32, device=q.device)
+        dkc = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+        dvc = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+        kc, vc = k, v
+        for s in range(size):
+            kv_idx = (idx - s) % size
+            ke, ve = _expand_gqa(kc, vc, h)
+            k3, v3 = _to3(ke), _to3(ve)
+            args = (q3, k3, v3, do3, lse, delta, scale, causal, idx * tq, kv_idx * tk)
+            dk_s, dv_s = flash_bwd_kv(*args)
+            dq3 += flash_bwd_q(*args).float()
+            # fold expanded-head grads back onto the unexpanded K/V heads
+            dkc = dkc + _from3(dk_s, b, h).reshape(b, tk, hkv, rep, d).sum(3).float()
+            dvc = dvc + _from3(dv_s, b, h).reshape(b, tk, hkv, rep, d).sum(3).float()
+            # K/V and their grad accumulators rotate together: after the
+            # full cycle each accumulator is home again (K/V need no last hop)
+            if s < size - 1:
+                kc, vc, dkc, dvc = axis.shift((kc, vc, dkc, dvc))
+            else:
+                dkc, dvc = axis.shift((dkc, dvc))
+        return (
+            _from3(dq3, b, h).to(q.dtype), dkc.to(k.dtype), dvc.to(v.dtype),
+            None, None,
+        )
+
+
+def ring_flash_local(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, axis: Any,
+    causal: bool = True,
+) -> torch.Tensor:
+    """Per-rank ring attention with flash tiles: the K/V chunks rotate
+    around the ``axis`` ring (a :class:`~torchft_tpu_torch.parallel.axis.
+    MeshAxis`) and each (local Q x visiting K/V) tile runs kernel A at
+    global offsets ``(rank * T_local, kv_rank * T_local)``; the backward
+    runs B and C per tile against the merged logsumexp.
+
+    q/k/v are this rank's chunks ``[B, T_local, H, D]``, rotary-embedded
+    with global positions; GQA K/V rotate unexpanded.  Requires
+    ``T_local % 128 == 0``; a CUDA tensor must be bf16 (the kernels' type),
+    as for :func:`flash_attention`."""
+    b, tq, h, d = q.shape
+    if h % k.shape[2] != 0:
+        raise ValueError(f"query heads {h} not a multiple of kv heads {k.shape[2]}")
+    _check_len(tq)
+    _check_len(k.shape[1])
+    return _RingFlash.apply(q, k, v, axis, causal)
+
+
 __all__ = [
     "flash_attention",
     "flash_bwd_kv",
@@ -353,4 +470,5 @@ __all__ = [
     "flash_bwd_q_plain",
     "flash_fwd",
     "flash_fwd_plain",
+    "ring_flash_local",
 ]

@@ -1,0 +1,353 @@
+"""In-group mesh axes: the port's ``shard_map`` collectives.
+
+The JAX package gets its in-group parallel axes from a ``jax.sharding.Mesh``
+and ``shard_map``: inside the mapped body, ``jax.lax.axis_index``,
+``axis_size``, ``ppermute``, ``all_to_all`` and ``psum`` talk to the other
+devices of one axis.  PyTorch runs one program per rank (SPMD), so the port
+gives each rank a :class:`MeshAxis` per axis — the axis's name, its
+``torch.distributed`` c10d process group, this rank's index and the axis
+size — and an :class:`InnerMesh` that holds them.
+
+Why not ``torch.distributed.device_mesh.DeviceMesh``: the process groups
+here are built directly from a store (``ProcessGroupGloo(PrefixStore(...),
+rank, size, timeout)`` or ``ProcessGroupNCCL``), never as the process-global
+default group: several replica groups' ranks run side by side as threads in
+the CPU tests, and the fault-tolerance layer owns the cross-group process
+group.  ``DeviceMesh.from_group`` accepts only groups registered with the
+default world and rejects such a raw group (``TypeError: 'ProcessGroupGloo'
+object is not iterable``), so the inner mesh is this small object instead.
+
+Transport.  On NCCL a CUDA tensor goes to the group as it is.  On gloo — the
+CPU tests, and several ranks sharing one card, which NCCL refuses — send,
+recv and all-to-all take CPU tensors, so a CUDA tensor is copied through a
+pinned host buffer and back.  That is a transport choice, not a kernel
+fallback: the attention tiles still run on the card.  Each axis logs once
+which path it takes.  Data-moving ops (:meth:`MeshAxis.shift`,
+:meth:`MeshAxis.all_to_all`) move raw bytes, so a bf16 tensor crosses as its
+16-bit pattern; :meth:`MeshAxis.psum_` sums in f32 (f64 stays f64) and
+rounds back.  There is no fallback: a failed exchange raises.
+"""
+
+from __future__ import annotations
+
+import collections
+import logging
+import time
+from typing import Any, Dict, List, Sequence, Tuple
+
+import torch
+
+logger = logging.getLogger(__name__)
+
+#: the largest host buffer one psum_ bucket stages (bytes of f32)
+_BUCKET_BYTES = 64 << 20
+
+
+def _as_bytes(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous().reshape(-1).view(torch.uint8)
+
+
+def _buckets(tensors: "List[torch.Tensor]"):
+    """Consecutive runs of ``tensors`` of at most :data:`_BUCKET_BYTES` of
+    f32 each (a larger tensor makes a bucket of its own)."""
+    bucket: "List[torch.Tensor]" = []
+    size = 0
+    for t in tensors:
+        if bucket and size + t.numel() * 4 > _BUCKET_BYTES:
+            yield bucket
+            bucket, size = [], 0
+        bucket.append(t)
+        size += t.numel() * 4
+    if bucket:
+        yield bucket
+
+
+class MeshAxis:
+    """One axis of the inner mesh: ``name``, its c10d ``group`` (None for
+    an axis of size 1), this rank's ``rank`` on it and its ``size``.
+
+    ``stats`` counts, per op (``shift``, ``all_to_all``, ``psum``), the
+    bytes this rank sent and the seconds the op held the caller; on the
+    gloo path a CUDA tensor's staging copies are included (the queued
+    compute that produced it is waited for before the clock starts)."""
+
+    def __init__(self, name: str, group: Any, rank: int, size: int) -> None:
+        if size > 1 and group is None:
+            raise ValueError(f"axis {name!r} of size {size} needs a process group")
+        self.name = name
+        self.group = group
+        self.rank = rank
+        self.size = size
+        self.backend = group.name() if group is not None else "none"
+        self.stats: "collections.Counter[str]" = collections.Counter()
+        self._logged = False
+
+    def __repr__(self) -> str:
+        return f"MeshAxis({self.name!r}, rank {self.rank} of {self.size}, {self.backend})"
+
+    # -- transport -------------------------------------------------------
+
+    def _staged(self, t: torch.Tensor) -> bool:
+        staged = t.device.type == "cuda" and self.backend != "nccl"
+        if not self._logged:
+            self._logged = True
+            how = (
+                "CUDA tensors staged through pinned host buffers" if staged
+                else f"{t.device.type} tensors passed to the group as they are"
+            )
+            logger.info("mesh axis %s (rank %d of %d, %s): %s",
+                        self.name, self.rank, self.size, self.backend, how)
+        return staged
+
+    def transport(self, device: "str | torch.device") -> str:
+        """How this axis moves tensors of ``device``: ``"<backend>"`` or
+        ``"<backend>, staged through pinned host memory"``."""
+        dev = torch.device(device)
+        if dev.type == "cuda" and self.backend != "nccl":
+            return f"{self.backend}, staged through pinned host memory"
+        return self.backend
+
+    def _start(self, staged: bool) -> float:
+        if staged:  # producers first: their time is compute, not exchange
+            torch.cuda.current_stream().synchronize()
+        return time.perf_counter()
+
+    def _stop(self, op: str, t0: float, nbytes: int, staged: bool) -> None:
+        if staged:
+            torch.cuda.current_stream().synchronize()
+        self.stats[f"{op}_bytes"] += nbytes
+        self.stats[f"{op}_s"] += time.perf_counter() - t0
+
+    @staticmethod
+    def _empty_like(b: torch.Tensor, staged: bool) -> torch.Tensor:
+        """A receive buffer for ``b``: pinned host memory when staged, else
+        on ``b``'s device (the card's, on NCCL)."""
+        if staged:
+            return torch.empty(b.shape, dtype=b.dtype, pin_memory=True)
+        return torch.empty_like(b)
+
+    @staticmethod
+    def _to_host(b: torch.Tensor) -> torch.Tensor:
+        host = torch.empty(b.shape, dtype=b.dtype, pin_memory=True)
+        host.copy_(b, non_blocking=True)
+        return host
+
+    # -- ops -------------------------------------------------------------
+
+    def shift(
+        self, tensors: "Sequence[torch.Tensor]", offset: int = 1
+    ) -> "List[torch.Tensor]":
+        """``jax.lax.ppermute`` by ``offset``: each tensor goes to rank
+        ``rank + offset`` and this rank gets rank ``rank - offset``'s, of
+        the same shape and type.  Not differentiable (see :func:`shift`)."""
+        if self.size == 1 or offset % self.size == 0:
+            return list(tensors)
+        staged = self._staged(tensors[0])
+        t0 = self._start(staged)
+        dst = (self.rank + offset) % self.size
+        src = (self.rank - offset) % self.size
+        sends = [_as_bytes(t) for t in tensors]
+        if staged:
+            sends = [self._to_host(b) for b in sends]
+            torch.cuda.current_stream().synchronize()
+        recvs = [self._empty_like(b, staged) for b in sends]
+        works = []
+        for tag, (snd, rcv) in enumerate(zip(sends, recvs)):
+            # even ranks send first, odd ranks receive first: on NCCL, where
+            # a send and a receive may queue on one stream, every hop then
+            # finds its peer's matching call ahead of it
+            if self.rank % 2 == 0:
+                works.append(self.group.send([snd], dst, tag))
+                works.append(self.group.recv([rcv], src, tag))
+            else:
+                works.append(self.group.recv([rcv], src, tag))
+                works.append(self.group.send([snd], dst, tag))
+        for w in works:
+            w.wait()
+        out = []
+        for t, r in zip(tensors, recvs):
+            if staged:
+                r = r.to(t.device, non_blocking=True)
+            out.append(r.view(t.dtype).reshape(t.shape))
+        self._stop("shift", t0, sum(b.numel() for b in sends), staged)
+        return out
+
+    def all_to_all_raw(
+        self, x: torch.Tensor, split_dim: int, concat_dim: int
+    ) -> torch.Tensor:
+        """``jax.lax.all_to_all(x, split_axis, concat_axis, tiled=True)``:
+        ``x`` splits into ``size`` equal parts along ``split_dim``, part
+        ``i`` goes to rank ``i``, and the parts received are concatenated
+        along ``concat_dim`` in rank order.  Not differentiable (see
+        :func:`all_to_all`)."""
+        if self.size == 1:
+            return x
+        if x.shape[split_dim] % self.size != 0:
+            raise ValueError(
+                f"all_to_all: dim {split_dim} of {tuple(x.shape)} does not "
+                f"split over {self.size} ranks"
+            )
+        staged = self._staged(x)
+        t0 = self._start(staged)
+        parts = torch.stack(x.chunk(self.size, dim=split_dim))
+        send = _as_bytes(parts)
+        if staged:
+            send = self._to_host(send)
+            torch.cuda.current_stream().synchronize()
+        recv = self._empty_like(send, staged)
+        self.group.alltoall_base(recv, send, [], []).wait()
+        if staged:
+            recv = recv.to(x.device, non_blocking=True)
+        got = recv.view(x.dtype).reshape(parts.shape)
+        out = torch.cat(got.unbind(0), dim=concat_dim)
+        self._stop("all_to_all", t0, send.numel(), staged)
+        return out
+
+    def psum_(self, tensors: "Sequence[torch.Tensor]") -> None:
+        """``jax.lax.psum`` in place: each floating-point tensor becomes its
+        sum over the axis, the same bits on every rank.  Tensors are packed
+        into buckets of at most 64 MiB and reduced in f32 (f64 in f64)."""
+        if self.size == 1 or not tensors:
+            return
+        for t in tensors:
+            if not t.is_floating_point():
+                raise TypeError(f"psum_ takes floating-point tensors, got {t.dtype}")
+        staged = self._staged(tensors[0])
+        t0 = self._start(staged)
+        nbytes = 0
+        for dtype in (torch.float32, torch.float64):
+            same = [t for t in tensors if (t.dtype == torch.float64) == (dtype == torch.float64)]
+            for bucket in _buckets(same):
+                nbytes += self._reduce_bucket(bucket, dtype, staged)
+        self._stop("psum", t0, nbytes, staged)
+
+    def _reduce_bucket(
+        self, bucket: "List[torch.Tensor]", dtype: torch.dtype, staged: bool
+    ) -> int:
+        n = sum(t.numel() for t in bucket)
+        if staged:
+            flat = torch.empty(n, dtype=dtype, pin_memory=True)
+        else:
+            flat = torch.empty(n, dtype=dtype, device=bucket[0].device)
+        off = 0
+        for t in bucket:
+            flat[off:off + t.numel()].copy_(t.reshape(-1), non_blocking=staged)
+            off += t.numel()
+        if staged:
+            torch.cuda.current_stream().synchronize()
+        self.group.allreduce([flat]).wait()
+        off = 0
+        for t in bucket:
+            t.copy_(flat[off:off + t.numel()].view(t.shape), non_blocking=staged)
+            off += t.numel()
+        return flat.numel() * flat.element_size()
+
+
+# ---------------------------------------------------------------------------
+# differentiable forms (the transposes jax.lax gives ppermute and all_to_all)
+# ---------------------------------------------------------------------------
+
+
+class _Shift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, axis: MeshAxis, offset: int, *tensors):  # type: ignore[override]
+        ctx.axis, ctx.offset = axis, offset
+        return tuple(axis.shift(tensors, offset))
+
+    @staticmethod
+    def backward(ctx, *grads):  # type: ignore[override]
+        return (None, None, *ctx.axis.shift(grads, -ctx.offset))
+
+
+def shift(axis: MeshAxis, *tensors: torch.Tensor, offset: int = 1) -> "Tuple[torch.Tensor, ...]":
+    """:meth:`MeshAxis.shift` under autograd: the gradient shifts back."""
+    return _Shift.apply(axis, offset, *tensors)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, axis: MeshAxis, x, split_dim: int, concat_dim: int):  # type: ignore[override]
+        ctx.axis, ctx.dims = axis, (split_dim, concat_dim)
+        return axis.all_to_all_raw(x, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):  # type: ignore[override]
+        split_dim, concat_dim = ctx.dims
+        return None, ctx.axis.all_to_all_raw(g.contiguous(), concat_dim, split_dim), None, None
+
+
+def all_to_all(
+    axis: MeshAxis, x: torch.Tensor, split_dim: int, concat_dim: int
+) -> torch.Tensor:
+    """:meth:`MeshAxis.all_to_all_raw` under autograd: the gradient takes
+    the inverse all-to-all."""
+    return _AllToAll.apply(axis, x, split_dim, concat_dim)
+
+
+# ---------------------------------------------------------------------------
+# the inner mesh
+# ---------------------------------------------------------------------------
+
+
+class InnerMesh:
+    """A replica group's inner mesh as one rank sees it: its axes in order
+    (row-major over the group's ranks, as ``np.reshape`` lays devices out
+    in a ``jax.sharding.Mesh``), this rank's coordinates, and the device it
+    computes on.  An axis the mesh does not name has size 1."""
+
+    def __init__(
+        self, axes: "Sequence[MeshAxis]", device: "str | torch.device" = "cpu"
+    ) -> None:
+        self.axes: "Dict[str, MeshAxis]" = {a.name: a for a in axes}
+        self.device = torch.device(device)
+
+    @property
+    def axis_names(self) -> "Tuple[str, ...]":
+        return tuple(self.axes)
+
+    @property
+    def shape(self) -> "Dict[str, int]":
+        """Axis name -> size, in order (``jax.sharding.Mesh.shape``)."""
+        return {n: a.size for n, a in self.axes.items()}
+
+    @property
+    def size(self) -> int:
+        n = 1
+        for a in self.axes.values():
+            n *= a.size
+        return n
+
+    def axis(self, name: str) -> MeshAxis:
+        a = self.axes.get(name)
+        return a if a is not None else MeshAxis(name, None, 0, 1)
+
+    def axis_size(self, name: str) -> int:
+        return self.axis(name).size
+
+    def axis_index(self, name: str) -> int:
+        return self.axis(name).rank
+
+    def psum_(self, tensors: "Sequence[torch.Tensor]") -> None:
+        """Sum each tensor over every axis of the mesh, in place."""
+        for a in self.axes.values():
+            a.psum_(tensors)
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of ``x`` over every axis, as a new tensor (no gradient)."""
+        out = x.detach().clone()
+        self.psum_([out])
+        return out
+
+    def stats(self) -> "Dict[str, float]":
+        """Every axis's counters, summed, keyed ``<op>_bytes`` / ``<op>_s``."""
+        out: "collections.Counter[str]" = collections.Counter()
+        for a in self.axes.values():
+            out.update(a.stats)
+        return dict(out)
+
+    def __repr__(self) -> str:
+        inner = ", ".join(f"{n}={a.size}" for n, a in self.axes.items())
+        return f"InnerMesh({inner}; on {self.device})"
+
+
+__all__ = ["InnerMesh", "MeshAxis", "all_to_all", "shift"]

@@ -1,0 +1,168 @@
+"""Several processes (or threads) in one replica group.
+
+PyTorch port of ``torchft_tpu/parallel/multihost.py``.  There, one replica
+group of N processes joins one jax runtime (``jax.distributed.initialize``)
+and XLA runs the in-group collectives of the mesh.  Here each process of
+the group builds its own c10d process groups from a store that every member
+reaches — a ``TCPStore`` at the coordinator address, hosted by process 0 —
+and the group's inner mesh is made of them (``parallel/device_mesh.py``
+``ft_init_device_mesh``).  Nothing sets a process-global default group: the
+fault-tolerance layer (one ``Manager`` per process, ``group_rank`` = process
+index) owns the cross-group process group, as in the JAX package.
+
+The backend is NCCL when each process of the group owns a card, and gloo
+otherwise (the CPU, or several processes sharing one card, which NCCL
+refuses); the choice is explicit and logged.  ``local_worlds`` gives ranks
+that are threads of one process the same view over a ``HashStore``; threads
+are safe on the CPU only (on the card, the autograd engine runs every CUDA
+backward of a process on one thread per device, so a rank blocked in a ring
+exchange would hold up the others: use processes there).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import threading
+import time
+from datetime import timedelta
+from typing import Any, Callable, List, Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+logger = logging.getLogger(__name__)
+
+
+@dataclasses.dataclass
+class GroupWorld:
+    """One rank's view of its replica group's ranks: a store all of them
+    reach, this rank, the count, the c10d backend and the groups' timeout
+    (seconds)."""
+
+    store: Any
+    rank: int
+    size: int
+    backend: str = "gloo"
+    timeout: float = 300.0
+
+    def new_group(self, key: str, ranks: "Sequence[int]") -> Any:
+        """The c10d process group of ``ranks`` (this rank among them),
+        built directly under a store prefix of its own (never the default
+        group); every rank in ``ranks`` must call it."""
+        ranks = list(ranks)
+        store = dist.PrefixStore(
+            f"tft_group/{key}/{'_'.join(map(str, ranks))}", self.store)
+        rank, size = ranks.index(self.rank), len(ranks)
+        timeout = timedelta(seconds=self.timeout)
+        if self.backend == "gloo":
+            return dist.ProcessGroupGloo(store, rank, size, timeout)
+        if self.backend == "nccl":
+            opts = dist.ProcessGroupNCCL.Options()
+            opts._timeout = timeout
+            return dist.ProcessGroupNCCL(store, rank, size, opts)
+        raise ValueError(f"unknown backend {self.backend!r}; expected 'gloo' or 'nccl'")
+
+
+def _default_backend(num_processes: int) -> str:
+    if (
+        torch.cuda.is_available()
+        and dist.is_nccl_available()
+        and torch.cuda.device_count() >= num_processes
+    ):
+        return "nccl"
+    return "gloo"
+
+
+def initialize_multihost(
+    coordinator_address: str,
+    num_processes: int,
+    process_id: int,
+    backend: "Optional[str]" = None,
+    timeout: float = 300.0,
+) -> GroupWorld:
+    """Join this process to its replica group: process 0 hosts a
+    ``TCPStore`` at ``coordinator_address`` (``host:port``), the others
+    connect to it.  ``backend`` defaults to NCCL when every process can own
+    a card of this host and to gloo otherwise.  Returns the
+    :class:`GroupWorld` the group's process groups are built from; sets no
+    process-global default group."""
+    host, _, port = coordinator_address.rpartition(":")
+    backend = backend or _default_backend(num_processes)
+    store = dist.TCPStore(
+        host, int(port), num_processes, is_master=process_id == 0,
+        timeout=timedelta(seconds=timeout), wait_for_workers=False,
+    )
+    logger.info(
+        "replica group member %d of %d at %s: in-group backend %s",
+        process_id, num_processes, coordinator_address, backend,
+    )
+    return GroupWorld(store, process_id, num_processes, backend, timeout)
+
+
+def local_worlds(size: int, timeout: float = 30.0) -> "List[GroupWorld]":
+    """``size`` gloo ranks of one process (threads) over one ``HashStore``:
+    the CPU tests' and rehearsals' replica group."""
+    store = dist.HashStore()
+    return [GroupWorld(store, r, size, "gloo", timeout) for r in range(size)]
+
+
+def run_ranks(
+    fn: "Callable[[int], Any]", size: int, timeout: float = 60.0
+) -> "List[Any]":
+    """Run ``fn(rank)`` for ``rank in range(size)``, one thread each, and
+    return the results in rank order.  A rank's exception, or a rank still
+    running after ``timeout`` seconds, raises here."""
+    results: "List[Any]" = [None] * size
+    errors: "List[Tuple[int, BaseException]]" = []
+
+    def run(rank: int) -> None:
+        try:
+            results[rank] = fn(rank)
+        except BaseException as e:  # noqa: BLE001 - re-raised by the caller
+            errors.append((rank, e))
+
+    threads = [
+        threading.Thread(target=run, args=(r,), name=f"rank{r}", daemon=True)
+        for r in range(size)
+    ]
+    for t in threads:
+        t.start()
+    deadline = time.monotonic() + timeout
+    for t in threads:
+        t.join(max(0.0, deadline - time.monotonic()))
+    hung = [t.name for t in threads if t.is_alive()]
+    if errors:
+        rank, err = errors[0]
+        raise RuntimeError(f"rank {rank} failed: {err!r}") from err
+    if hung:
+        raise TimeoutError(f"ranks still running after {timeout} s: {hung}")
+    return results
+
+
+def host_sharded_array(
+    global_shape: "Sequence[int]",
+    index: "Tuple[slice, ...]",
+    fill: "Callable[[Tuple[slice, ...]], Any]",
+) -> torch.Tensor:
+    """This rank's shard of a global array: ``fill(index)`` (numpy or a
+    tensor) for the global slices ``index`` of ``global_shape``, checked
+    against the shape the slices give.  The JAX package assembles a global
+    array from every process's shards (``jax.make_array_from_callback``);
+    an SPMD torch program keeps only its own."""
+    want = tuple(
+        len(range(*s.indices(n))) for s, n in zip(index, global_shape)
+    ) + tuple(global_shape[len(index):])
+    out = torch.as_tensor(fill(index))
+    if tuple(out.shape) != want:
+        raise ValueError(f"fill gave {tuple(out.shape)} for {index}, expected {want}")
+    return out
+
+
+__all__ = [
+    "GroupWorld",
+    "host_sharded_array",
+    "initialize_multihost",
+    "local_worlds",
+    "run_ranks",
+]
