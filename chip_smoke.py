@@ -133,6 +133,7 @@ The last two lines are the kernels' JSON record and the device JSON.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -2179,23 +2180,32 @@ CP_SIZE = 2
 CP_STEPS = 3
 #: phase 10's depth: the flagship's 16 layers (widths are never cut)
 CP_LAYERS = 16
-#: Phase 10's step-0 checks, bf16 on the card.  The loss (f32, a mean over
-#: 8184 positions) of the ring must match the one-device flash model's,
-#: and Ulysses' the ring's, to CP_LOSS_RTOL relative.  Gradients: two bf16
-#: models differ by their rounding, and in bf16 the one-device model's own
-#: gradients lie 2-4 % (norm-relative) from the same model computed in f32
-#: on most leaves (a 16-layer CPU study of the twins at B = 1: 115 of 146
-#: leaves over 2e-2, the ring's error over the one-device model's at most
-#: 1.10x a leaf).  So every leaf is held to an f32 model on the same weights
-#: and tokens (dense attention, plain torch): the ring's and Ulysses'
-#: distance to it at most CP_ACCURACY_RATIO times the one-device model's
-#: plus CP_ACCURACY_SLACK of its norm.  The direct ring-to-one-device
-#: distance is reported beside it (2e-2 was the bound first set for it; the
-#: card measured 2.35e-2 on one leaf, under the one-device model's own
-#: distance to f32).
+#: Phase 10's step-0 checks, bf16 on the card; any one failing fails the
+#: run.  Loss (f32, a mean over 8184 positions): the ring's against the
+#: one-device flash model's, and Ulysses' against the ring's, within
+#: CP_LOSS_RTOL relative.  Gradients, norm-relative per leaf:
+#: - directly, the ring's against the one-device model's and Ulysses'
+#:   against the ring's within CP_GRAD_TOL.  Two sound bf16 models differ
+#:   by their rounding: 2.351e-2 and 2.350e-2 on ``blocks.0.wk.weight``
+#:   on the H100 (2e-2 was the bound first set, and it failed them);
+#: - against an f32 model on the same weights and tokens (dense attention
+#:   in plain torch, no kernel): the one-device model within CP_F32_TOL
+#:   (3.678e-2 measured), and the ring and Ulysses within CP_ACCURACY_RATIO
+#:   times the one-device model's distance plus CP_ACCURACY_SLACK (worst
+#:   0.803 of that bound measured).  The cap keeps a fault shared by
+#:   kernels A-C from widening the ratio bound.
+#: Planted controls (CP_CONTROLS) show that these checks catch a faulty ring.
 CP_LOSS_RTOL = 1e-3
+CP_GRAD_TOL = 3e-2
+CP_F32_TOL = 5e-2
 CP_ACCURACY_RATIO = 1.25
 CP_ACCURACY_SLACK = 1e-3
+#: Phase 10's planted faults, each put into kernel A's results on the ring
+#: tiles that lie wholly in the past (rank r > 0 against an earlier K/V
+#: chunk) for one extra ring step at step 0: the tile dropped (O = 0, lse
+#: = -1e30), or its merge weight doubled (lse + ln 2).  Each must fail a
+#: gradient check of the ring.
+CP_CONTROLS = ("tile_dropped", "merge_weight_doubled")
 
 
 def _free_port() -> int:
@@ -2222,14 +2232,46 @@ def grad_errors(got: dict, want: dict) -> "dict":
     }
 
 
-def _cp_step0_refs(model, cfg, mesh, tokens, rank: int) -> dict:
+@contextlib.contextmanager
+def planted_fault(kind: str):
+    """Plant one of ``CP_CONTROLS`` into kernel A's results on the ring's
+    past tiles, for the duration of the block (see ``CP_CONTROLS``)."""
+    import torch
+
+    from torchft_tpu_torch.ops import flash_attention as fa
+
+    real = fa.flash_fwd
+
+    def faulty(q3, k3, v3, scale, causal, q_off=0, k_off=0):
+        o, lse = real(q3, k3, v3, scale, causal, q_off, k_off)
+        if q_off <= k_off:
+            return o, lse
+        if kind == "tile_dropped":
+            return torch.zeros_like(o), torch.full_like(lse, -1e30)
+        return o, lse + math.log(2.0)
+
+    # the wrapper counts its launches on the module's ``flash_fwd``, which
+    # is ``faulty`` meanwhile: count them there and hand them on after
+    faulty.launches = faulty.offset_launches = 0
+    fa.flash_fwd = faulty
+    try:
+        yield
+    finally:
+        fa.flash_fwd = real
+        real.launches += faulty.launches
+        real.offset_launches += faulty.offset_launches
+
+
+def _cp_step0_refs(model, cfg, mesh, tokens, rank: int) -> "tuple":
     """Phase 10's references at step 0, run before the ring step on the
     same weights and tokens: on rank 0, the model in f32 with plain dense
     attention and the one-device flash model, both on the whole sequence;
-    on every rank (it is collective), the Ulysses model over the cp axis.
-    All recompute each block in the backward (full remat, which changes no
+    on every rank (it is collective), the Ulysses model over the cp axis,
+    then the ring under each planted fault of ``CP_CONTROLS``.  All
+    recompute each block in the backward (full remat, which changes no
     value) so that their activations do not add to four processes' memory
-    on one card.  Returns their ``(loss, grads)`` by name."""
+    on one card.  Returns the references' ``(loss, grads)`` by name, and on
+    rank 0 each control's checks (:func:`cp_accuracy`) by name."""
     import dataclasses
 
     import torch
@@ -2246,15 +2288,25 @@ def _cp_step0_refs(model, cfg, mesh, tokens, rank: int) -> dict:
                                       remat_policy="full")
         use_config(model, ref_cfg)
         refs[name] = tf.make_grad_step(ref_cfg, ref_mesh)(model, tokens)
+    controls = {}
+    ring_cfg = dataclasses.replace(cfg, attn_impl="ring", remat=True, remat_policy="full")
+    use_config(model, ring_cfg)
+    for kind in CP_CONTROLS:
+        with planted_fault(kind):
+            faulty = tf.make_grad_step(ring_cfg, mesh)(model, tokens)
+        if rank == 0:
+            controls[kind] = cp_accuracy(faulty, refs)
+        del faulty
     use_config(model, cfg)
-    return refs
+    return refs, controls
 
 
 def cp_accuracy(ring: tuple, refs: dict) -> dict:
-    """Phase 10's step-0 verdict on rank 0 (see ``CP_LOSS_RTOL``): the
+    """Phase 10's step-0 readings on rank 0 (see ``CP_LOSS_RTOL``): the
     losses' relative differences, each model's worst leaf distance to the
-    f32 model, the worst ratio of the ring's and Ulysses' to the bound, and
-    the direct ring-to-one-device and Ulysses-to-ring distances."""
+    f32 model, the worst ratio of the ring's and Ulysses' to their bound,
+    the direct ring-to-one-device and Ulysses-to-ring distances, and
+    ``failed``, the names of the checks that these readings fail."""
     (loss, grads), (one_loss, one), (uly_loss, uly), (_, f32) = (
         ring, refs["one_device"], refs["ulysses"], refs["f32"])
     e_one, e_ring, e_uly = (grad_errors(g, f32) for g in (one, grads, uly))
@@ -2268,7 +2320,7 @@ def cp_accuracy(ring: tuple, refs: dict) -> dict:
         name = max(ratio, key=ratio.get)
         return {"leaf": name, "of_bound": ratio[name]}
 
-    return {
+    c = {
         "loss": float(loss), "one_device_loss": float(one_loss),
         "ulysses_loss": float(uly_loss),
         "ring_loss_rel_err": abs(float(loss) - float(one_loss)) / abs(float(one_loss)),
@@ -2279,6 +2331,22 @@ def cp_accuracy(ring: tuple, refs: dict) -> dict:
         "ring_to_one_device": worst(grad_errors(grads, one)),
         "ulysses_to_ring": worst(grad_errors(uly, grads)),
     }
+    limits = {
+        "ring_loss_rel_err": (c["ring_loss_rel_err"], CP_LOSS_RTOL),
+        "ulysses_loss_rel_err": (c["ulysses_loss_rel_err"], CP_LOSS_RTOL),
+        "one_device_to_f32": (c["one_device_to_f32"]["err"], CP_F32_TOL),
+        "ring_bound": (c["ring_bound"]["of_bound"], 1.0),
+        "ulysses_bound": (c["ulysses_bound"]["of_bound"], 1.0),
+        "ring_to_one_device": (c["ring_to_one_device"]["err"], CP_GRAD_TOL),
+        "ulysses_to_ring": (c["ulysses_to_ring"]["err"], CP_GRAD_TOL),
+    }
+    # a NaN reading fails its check
+    c["failed"] = [n for n, (x, lim) in limits.items() if not x <= lim]
+    return c
+
+
+#: the checks of :func:`cp_accuracy` that hold the ring's gradients
+CP_RING_GRAD_CHECKS = ("ring_bound", "ring_to_one_device")
 
 
 def _cp_rank(gid: int, rank: int, cfg, batch: int, seq: int, device: str,
@@ -2300,8 +2368,6 @@ def _cp_rank(gid: int, rank: int, cfg, batch: int, seq: int, device: str,
 
     tag = f"cp g{gid}r{rank}"
     on_card = device == "cuda"
-    if not on_card:  # four ranks share the host's cores
-        torch.set_num_threads(1)
     torch.backends.cuda.matmul.allow_tf32 = False  # the f32 reference stays f32
     rss_start = host_rss_gb()
     world = initialize_multihost(coordinator, CP_SIZE, rank, timeout=600.0)
@@ -2343,10 +2409,10 @@ def _cp_rank(gid: int, rank: int, cfg, batch: int, seq: int, device: str,
                 0, cfg.vocab_size, (batch, seq),
                 generator=torch.Generator().manual_seed(1000 * gid + step),
             ).to(device)
-            refs = {}
+            refs, controls = {}, {}
             if gid == 0 and step == 0:
                 t_c = time.perf_counter()
-                refs = _cp_step0_refs(model, cfg, mesh, tokens, rank)
+                refs, controls = _cp_step0_refs(model, cfg, mesh, tokens, rank)
                 sync()
                 t_c = time.perf_counter() - t_c  # no part of the step
                 t0, t1 = t0 + t_c, t1 + t_c
@@ -2357,11 +2423,12 @@ def _cp_rank(gid: int, rank: int, cfg, batch: int, seq: int, device: str,
             stats = {k: v - stats0.get(k, 0) for k, v in mesh.stats().items()}
             if "f32" in refs:
                 checks = cp_accuracy((loss, grads), refs)
+                checks["controls"] = controls
                 log(f"  {tag} step-0 checks: {json.dumps(checks)}")
-                assert checks["ring_loss_rel_err"] <= CP_LOSS_RTOL, checks
-                assert checks["ulysses_loss_rel_err"] <= CP_LOSS_RTOL, checks
-                assert checks["ring_bound"]["of_bound"] <= 1.0, checks
-                assert checks["ulysses_bound"]["of_bound"] <= 1.0, checks
+                assert not checks["failed"], checks
+                for kind, c in controls.items():
+                    # the check must catch each planted fault in the gradients
+                    assert set(c["failed"]) & set(CP_RING_GRAD_CHECKS), (kind, c)
             del refs
             t2b = time.perf_counter()
             avg = ddp.allreduce_gradients(module_grads(model)).wait(timeout=600)

@@ -62,8 +62,9 @@ def test_cp_path_rehearsal_on_cpu():
     """Phase 10 at a tiny f32 size through the same spawn code: four
     processes (two groups x cp = 2), a lighthouse here, a Manager per
     process; the path itself asserts three commits everywhere, the ring
-    against the one-device model and Ulysses at step 0, and all four
-    processes' parameters and AdamW state bitwise equal."""
+    against the one-device model and Ulysses at step 0, each planted fault
+    caught, and all four processes' parameters and AdamW state bitwise
+    equal."""
     cfg = tf.TransformerConfig(
         vocab_size=256, d_model=64, n_heads=2, n_kv_heads=1, d_ff=128,
         n_layers=2, max_seq_len=256, dtype=torch.float32, remat=False,
@@ -84,6 +85,13 @@ def test_cp_path_rehearsal_on_cpu():
     for key in ("one_device_to_f32", "ring_to_f32", "ulysses_to_f32",
                 "ring_to_one_device", "ulysses_to_ring"):
         assert checks[key]["err"] < 1e-5, (key, checks[key])
+    assert checks["failed"] == []
+    # each planted fault fails both of the ring's gradient checks (the path
+    # itself asserts one)
+    controls = checks["controls"]
+    assert sorted(controls) == sorted(chip_smoke.CP_CONTROLS)
+    for kind, c in controls.items():
+        assert set(chip_smoke.CP_RING_GRAD_CHECKS) <= set(c["failed"]), (kind, c)
     # kernels run as their twins in the children on CPU tensors
     assert summary["launches"] == {"flash_fwd": 0, "flash_bwd_kv": 0, "flash_bwd_q": 0}
     assert all(n > 0 for n in summary["twin_calls"].values())

@@ -41,12 +41,6 @@ def _rank(rank, addr, backend, shape, inputs, results):
         dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
-        else:
-            # one torch thread: four processes share the host's cores, and
-            # the first multi-threaded attention call of a fresh process
-            # under load has been seen to round differently (see
-            # tests/test_torch_flash_attention.py::_warm_cpu_twins)
-            torch.set_num_threads(1)
         world = multihost.initialize_multihost(addr, 4, rank, timeout=120.0)
         assert world.backend == backend, world.backend
         mesh = tdm.ft_init_device_mesh(None, shape, groups=world, device=dev).mesh

@@ -40,18 +40,6 @@ SHAPE = dict(
 ROUTES = {"ring-flash": ("ring", 256), "ring-plain": ("ring", 64), "ulysses": ("ulysses", 64)}
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One torch thread per rank thread while this module runs (restored
-    after): its ranks already run side by side, and a multi-threaded first
-    call of the attention twin under load can round differently (see
-    tests/test_torch_flash_attention.py::_warm_cpu_twins)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 def _configs(attn_impl, **kw):
     return (
         jtf.TransformerConfig(dtype=jnp.float32, attn_impl=attn_impl, remat=False,

@@ -30,18 +30,6 @@ from torchft_tpu_torch.parallel import multihost
 from torchft_tpu_torch.parallel.axis import InnerMesh, MeshAxis
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One torch thread per rank thread while this module runs (restored
-    after): its ranks already run side by side, and a multi-threaded first
-    call of the attention twin under load can round differently (see
-    tests/test_torch_flash_attention.py::_warm_cpu_twins)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 class _StubManager:
     """The replica dimension's live values, settable between calls."""
 

@@ -23,18 +23,6 @@ from torchft_tpu_torch.ops.ring_attention import dense_attention as t_dense
 FWD_TOL = dict(atol=2e-5, rtol=1e-5)
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _warm_cpu_twins():
-    """Make this process's first attention-twin call here, on a throwaway
-    input.  Under CPU load the first such call of a fresh process has been
-    seen to round differently from every later one (O off by 1.3e-4 and lse
-    by 4.7e-5 at [8, 128, 64] f32 with 2 torch threads, in 4 of 66 fresh
-    processes under load; in none of 40 after one small call first), which
-    the comparisons' tolerances would catch."""
-    z = torch.zeros(1, 128, 8)
-    tfa.flash_fwd_plain(z, z, z, 0.125, True)
-
-
 def _qkv(t, d, b=1, h=4, hkv=2, seed=0):
     rng = np.random.default_rng(seed)
     return tuple(

@@ -24,23 +24,13 @@ from jax.sharding import Mesh
 from torchft_tpu.ops import ring_attention as jra
 from torchft_tpu_torch.ops import flash_attention as fa
 from torchft_tpu_torch.ops import ring_attention as tra
+from torchft_tpu_torch.ops import softmax_math
 from torchft_tpu_torch.parallel import multihost
 from torchft_tpu_torch.parallel.axis import InnerMesh, MeshAxis
 
 FWD_TOL = dict(atol=2e-5, rtol=1e-5)
 GRAD_TOL = 2e-5
 
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One torch thread per rank thread while this module runs (restored
-    after): its ranks already run side by side, and a multi-threaded first
-    call of the attention twin under load can round differently (see
-    tests/test_torch_flash_attention.py::_warm_cpu_twins)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 #: (route, cp, causal): the plain tile body at T_local = 8 or 4, the flash
 #: route at T_local = 128; GQA K/V (4 query heads over 2) throughout
@@ -174,3 +164,20 @@ def test_sharded_attention_needs_the_axis():
     q = torch.zeros(1, 16, 2, 8)
     with pytest.raises(ValueError, match="requires a 'cp' mesh axis"):
         tra.ring_attention(q, q, q, mesh)
+    with pytest.raises(ValueError, match="requires a mesh"):
+        tra.ring_attention(q, q, q, None)
+
+
+def test_softmax_math_is_exp_and_log_within_its_stated_error():
+    """The attention paths' exp and log (``ops/softmax_math.py``) against
+    float64 at the bounds its docstring states, including the masked
+    scores' -1e30 and an f32 log's rounding."""
+    x = torch.linspace(-30.0, 0.0, 300_001)
+    want = torch.exp(x.double())
+    got = softmax_math.exp(x).double()
+    assert float(((got - want).abs() / want)[x > -5].max()) <= 3e-7
+    assert float((got - want).abs().max()) <= 6e-8
+    assert float(softmax_math.exp(torch.tensor([-1e30, -1.44e30]))[0]) == 0.0
+    y = torch.logspace(-30, 30, 300_001)
+    err = (softmax_math.log(y).double() - torch.log(y.double())).abs()
+    assert float((err / torch.log(y.double()).abs().clamp_min(1.0)).max()) <= 2 ** -23

@@ -38,18 +38,6 @@ TOL = {"flash-2-causal": 3e-6}
 GRAD_CASES = ("gqa-6over3-cp2",)
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One torch thread per rank thread while this module runs (restored
-    after): its ranks already run side by side, and a multi-threaded first
-    call of the attention twin under load can round differently (see
-    tests/test_torch_flash_attention.py::_warm_cpu_twins)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 def _inputs(case):
     cp, causal, t, h, hkv = CASES[case]
     rng = np.random.default_rng(7)

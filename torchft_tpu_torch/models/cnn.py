@@ -14,7 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from torchft_tpu_torch.models.transformer import resolve_device
+from torchft_tpu_torch.utils.device import resolve_device
 
 
 class CNN(nn.Module):

@@ -14,7 +14,7 @@ from typing import List, Mapping, Sequence, Union
 import torch
 from torch import nn
 
-from torchft_tpu_torch.models.transformer import resolve_device
+from torchft_tpu_torch.utils.device import resolve_device
 
 
 class MLP(nn.Module):

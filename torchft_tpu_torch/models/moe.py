@@ -36,6 +36,8 @@ from typing import Dict, Mapping, NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
+from torchft_tpu_torch.utils.device import resolve_device
+
 Params = Dict[str, torch.Tensor]
 
 
@@ -60,8 +62,6 @@ def init_moe_params(
     ``generator`` and moved to ``device``; ``n_layers > 0`` adds a leading
     stacked layer dim.  Layout as the JAX package's: ``router [d, E]``,
     ``w_gate``/``w_up [E, d, f]``, ``w_down [E, f, d]``."""
-    from torchft_tpu_torch.models.transformer import resolve_device
-
     dev = resolve_device(device)
     e, f, ne = cfg.d_model, cfg.d_ff, cfg.n_experts
     lead = (n_layers,) if n_layers else ()

@@ -51,9 +51,10 @@ from torchft_tpu_torch.models.moe import MoEConfig, moe_ffn_stats
 from torchft_tpu_torch.ops.flash_attention import flash_attention, flash_fwd_op
 from torchft_tpu_torch.ops.ring_attention import (
     dense_attention,
-    ring_attention_local,
+    ring_attention,
 )
-from torchft_tpu_torch.ops.ulysses import ulysses_attention_local
+from torchft_tpu_torch.ops.ulysses import ulysses_attention
+from torchft_tpu_torch.utils.device import resolve_device
 
 
 #: the inner mesh's axis names for the batch and the sequence
@@ -89,17 +90,6 @@ class TransformerConfig:
     @property
     def head_dim(self) -> int:
         return self.d_model // self.n_heads
-
-
-def resolve_device(device: "str | torch.device") -> torch.device:
-    """The device an entry point runs on; a CUDA request with no card
-    raises instead of quietly running on the CPU."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run on the CPU"
-        )
-    return dev
 
 
 # ---------------------------------------------------------------------------
@@ -222,14 +212,10 @@ class Block(nn.Module):
     def _attention(self, q, k, v, mesh: Any = None) -> torch.Tensor:
         cfg = self.cfg
         impl = _resolve_attn_impl(cfg, q.shape[1], q.device, mesh)
-        if impl in ("ring", "ulysses"):
-            if mesh is None or CP_AXIS not in mesh.axis_names:
-                raise ValueError(
-                    f"{impl} attention requires a mesh with a {CP_AXIS!r} "
-                    f"axis; got {mesh!r} (use attn_impl='dense' or 'flash')"
-                )
-            local_fn = ring_attention_local if impl == "ring" else ulysses_attention_local
-            return local_fn(q, k, v, mesh.axis(CP_AXIS), causal=True)
+        if impl == "ring":
+            return ring_attention(q, k, v, mesh, CP_AXIS)
+        if impl == "ulysses":
+            return ulysses_attention(q, k, v, mesh, CP_AXIS)
         if impl in ("flash", "dense") and _cp_size(mesh) > 1:
             raise ValueError(
                 f"attn_impl={impl!r} needs the sequence unsharded; on a "

@@ -23,7 +23,9 @@ Semantics kept from the JAX package: ``[B, T, H, D]`` layout at
 GLOBAL positions ``(q_off, k_off)`` (so a ring composition can reuse the
 kernels), all-masked rows giving ``O = 0`` and ``lse ~ -inf``,
 ``l = max(l, 1e-30)``, and ``p``/``dS`` cast to the input type before their
-products.  ``delta = rowsum(dO * O)`` is a plain torch op, as in JAX.
+products.  ``delta = rowsum(dO * O)`` is a plain torch op, as in JAX.  The
+twins and the ring's merge take exp and log from
+:mod:`~torchft_tpu_torch.ops.softmax_math` (``exp2``, as the kernels do).
 
 :func:`ring_flash_local` composes the three kernels with context
 parallelism, as the JAX package's function of that name does: kernel A on
@@ -41,6 +43,7 @@ from typing import Any, Tuple
 import torch
 
 from torchft_tpu_torch import _kernels
+from torchft_tpu_torch.ops import softmax_math
 
 _NEG_INF = -1e30
 _ALIGN = 128
@@ -118,10 +121,10 @@ def flash_fwd_plain(
         mask = _causal_mask(q3.shape[1], k3.shape[1], q_off, k_off, q3.device)
         s = torch.where(mask, s, _NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
-    p = torch.where(m > _NEG_INF / 2, torch.exp(s - m), 0.0)
+    p = torch.where(m > _NEG_INF / 2, softmax_math.exp(s - m), 0.0)
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     acc = torch.matmul(p.to(q3.dtype).float(), v3.float())
-    return (acc / l).to(q3.dtype), (m + torch.log(l)).squeeze(-1)
+    return (acc / l).to(q3.dtype), (m + softmax_math.log(l)).squeeze(-1)
 
 
 flash_fwd_plain.calls = 0
@@ -129,7 +132,7 @@ flash_fwd_plain.calls = 0
 
 def _recompute_p(q3, k3, lse, scale, causal, q_off, k_off) -> torch.Tensor:
     s = torch.matmul(q3.float(), k3.float().transpose(1, 2)) * scale
-    p = torch.exp(s - lse[..., None])
+    p = softmax_math.exp(s - lse[..., None])
     if causal:
         mask = _causal_mask(q3.shape[1], k3.shape[1], q_off, k_off, q3.device)
         p = torch.where(mask, p, 0.0)
@@ -390,11 +393,11 @@ class _RingFlash(torch.autograd.Function):
             # blockwise softmax combination over chunks (f32); a tile whose
             # rows see no key has lse ~ -1e30 and weighs exp(-huge) = 0
             m = torch.maximum(lse, lse_s)
-            w1 = torch.exp(lse - m)
-            w2 = torch.exp(lse_s - m)
+            w1 = softmax_math.exp(lse - m)
+            w2 = softmax_math.exp(lse_s - m)
             denom = torch.clamp_min(w1 + w2, 1e-30)
             o3 = o3 * (w1 / denom)[..., None] + o_s.float() * (w2 / denom)[..., None]
-            lse = m + torch.log(denom)
+            lse = m + softmax_math.log(denom)
             if s < size - 1:  # the last shift would carry nothing back
                 kc, vc = axis.shift((kc, vc))
         o = _from3(o3.to(q.dtype), b, h)

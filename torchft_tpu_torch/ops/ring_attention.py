@@ -23,10 +23,11 @@ from __future__ import annotations
 
 import logging
 import math
-from typing import Any, Callable, Optional
+from typing import Any, Callable
 
 import torch
 
+from torchft_tpu_torch.ops import softmax_math
 from torchft_tpu_torch.parallel import axis as axis_ops
 
 _NEG_INF = -1e30
@@ -80,24 +81,21 @@ def ring_attention_local(
     v: torch.Tensor,
     axis: Any,
     causal: bool = True,
-    use_flash: "Optional[bool]" = None,
 ) -> torch.Tensor:
     """Per-rank ring attention body over ``axis`` (a ``MeshAxis``); q/k/v
     are this rank's sequence chunks ``[B, T_local, H, D]``, rotary-embedded
     with global positions.
 
     GQA: K/V may carry fewer heads; they rotate unexpanded and are
-    broadcast up to the query heads inside each tile.  ``use_flash`` (None:
-    ``T_local % 128 == 0``) selects the flash tiles.  Returns the local
-    output chunk ``[B, T_local, H, D]`` in q's type."""
+    broadcast up to the query heads inside each tile.  ``T_local % 128 ==
+    0`` selects the flash tiles.  Returns the local output chunk
+    ``[B, T_local, H, D]`` in q's type."""
     b, tq, h, d = q.shape
     tk = k.shape[1]
     hkv = k.shape[2]
     if h % hkv != 0:
         raise ValueError(f"query heads {h} not a multiple of kv heads {hkv}")
-    if use_flash is None:
-        use_flash = tq % 128 == 0 and tk % 128 == 0
-    if use_flash:
+    if tq % 128 == 0 and tk % 128 == 0:
         from torchft_tpu_torch.ops.flash_attention import ring_flash_local
 
         return ring_flash_local(q, k, v, axis, causal)
@@ -123,11 +121,11 @@ def ring_attention_local(
             mask = q_pos[:, None] >= k_pos[None, :]
             scores = torch.where(mask[None, None], scores, _NEG_INF)
         m_new = torch.maximum(m, scores.amax(dim=-1))
-        p = torch.exp(scores - m_new[..., None])
+        p = softmax_math.exp(scores - m_new[..., None])
         if causal:
             # a tile wholly in the future would otherwise add exp(0) = 1
             p = torch.where(mask[None, None], p, 0.0)
-        corr = torch.exp(m - m_new)
+        corr = softmax_math.exp(m - m_new)
         l = l * corr + p.sum(dim=-1)
         o = o * corr[..., None] + torch.einsum(
             "bhqk,bkhd->bhqd", p.to(q.dtype).float(), vr.float()
@@ -151,6 +149,11 @@ def sharded_attention(
     """Run a sequence-parallel attention body (ring or Ulysses signature)
     on this rank's chunks ``[B, T_local, H, D]`` over the ``axis_name`` axis
     of the inner mesh ``mesh`` (an ``InnerMesh``)."""
+    if mesh is None:
+        raise ValueError(
+            f"sequence-parallel attention requires a mesh with a "
+            f"{axis_name!r} axis; got None"
+        )
     if axis_name not in mesh.axis_names:
         raise ValueError(
             f"sequence-parallel attention requires a {axis_name!r} mesh axis; "

@@ -13,7 +13,7 @@ sequence is :func:`~torchft_tpu_torch.ops.flash_attention.flash_attention`
 from __future__ import annotations
 
 import math
-from typing import Any, Optional
+from typing import Any
 
 import torch
 
@@ -37,7 +37,6 @@ def ulysses_attention_local(
     v: torch.Tensor,
     axis: Any,
     causal: bool = True,
-    use_flash: "Optional[bool]" = None,
 ) -> torch.Tensor:
     """Per-rank Ulysses body over ``axis`` (a ``MeshAxis``); q/k/v are
     this rank's sequence chunks ``[B, T_local, H, D]``, rotary-embedded
@@ -46,9 +45,8 @@ def ulysses_attention_local(
     GQA: when ``H_kv`` divides over the axis, K/V cross the all-to-all
     unexpanded; otherwise they are first replicated to ``lcm(H_kv, size)``
     heads (contiguous repeat, so the GQA mapping survives the head split).
-    Query heads must divide the axis size.  ``use_flash`` (None: global
-    ``T % 128 == 0``) selects the flash kernels.  Returns
-    ``[B, T_local, H, D]``."""
+    Query heads must divide the axis size.  A global ``T % 128 == 0``
+    selects the flash kernels.  Returns ``[B, T_local, H, D]``."""
     size = axis.size
     h, hkv = q.shape[2], k.shape[2]
     if h % size != 0:
@@ -69,9 +67,7 @@ def ulysses_attention_local(
         return axis_ops.all_to_all(axis, x, split_dim=2, concat_dim=1)
 
     qf, kf, vf = seq_gather(q), seq_gather(k), seq_gather(v)
-    if use_flash is None:
-        use_flash = qf.shape[1] % 128 == 0
-    if use_flash:
+    if qf.shape[1] % 128 == 0:
         from torchft_tpu_torch.ops.flash_attention import flash_attention
 
         out = flash_attention(qf, kf, vf, causal=causal)

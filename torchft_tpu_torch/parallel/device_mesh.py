@@ -23,6 +23,7 @@ import numpy as np
 
 from torchft_tpu_torch.parallel.axis import InnerMesh, MeshAxis
 from torchft_tpu_torch.parallel.multihost import GroupWorld
+from torchft_tpu_torch.utils.device import resolve_device
 
 #: inner axes that replicate the weights (and so need no sharding here)
 SUPPORTED_AXES = ("dp", "cp")
@@ -188,8 +189,6 @@ def ft_init_device_mesh(
     the group calls this, and each builds one process group per axis of
     size > 1 with the ranks that differ from it only along that axis.
     ``device`` is where this rank computes."""
-    from torchft_tpu_torch.models.transformer import resolve_device
-
     dev = resolve_device(device)
     world = groups if groups is not None else GroupWorld(None, 0, 1)
     shape = tuple(int(n) for n in mesh_shape.values())
