@@ -128,6 +128,33 @@ Phases, any failure exits non-zero:
     ring phase, the bytes sent in-group, and device and host memory per
     process.
 
+11. HSDP: two replica groups of four processes each (8 on the card),
+    spawned as in phase 10, each process with its own Manager over its
+    shards (``group_rank`` = its rank in the group), an inner mesh
+    ``{"fsdp": 2, "tp": 2}`` over gloo with pinned host staging, and the
+    flagship at full width and depth (16 layers, full remat) with
+    its weights sharded as the JAX package's ``param_specs`` say: each
+    block's weights gathered over fsdp in its forward (and again in the
+    recompute) and reduce-scattered in its backward, column- and
+    row-parallel matmuls over tp, attention on the rank's 3 heads through
+    kernels A, B and C (the 3 KV heads, which tp = 2 does not divide,
+    expanded first), a vocab-parallel head and loss; B = 8, T = 1024,
+    AdamW, six committed steps.  At step 0 group 0's rank 0 also runs the
+    one-device flash model and the f32 model with plain dense attention on
+    the whole weights and tokens; the sharded loss must match the
+    one-device model's to 1e-3 relative and the gathered gradients hold
+    phase 10's bounds, and a planted fault (the fsdp reduce-scatter
+    averaging) must fail them.  Group 1's four processes are SIGKILLed
+    after their second commit and restarted; each heals over HTTP from the
+    same rank of group 0 at the survivors' step, and rank r of both groups
+    must end with the same parameters and AdamW state, bit for bit.
+    Every process must launch A, B and C in its own training steps; those
+    launches alone go into the kernels' record (the step-0 references' and
+    the planted control's are counted apart).  Prints the step split into
+    compute, fsdp gather, reduce-scatter, tp collectives and the FT ring
+    phase, bytes by axis, each rank's heal and device and host memory per
+    process.
+
 The last two lines are the kernels' JSON record and the device JSON.
 """
 
@@ -2301,6 +2328,20 @@ def _cp_step0_refs(model, cfg, mesh, tokens, rank: int) -> "tuple":
     return refs, controls
 
 
+def _worst(e: dict) -> dict:
+    name = max(e, key=e.get)
+    return {"leaf": name, "err": e[name]}
+
+
+def _over_bound(e: dict, e_one: dict) -> dict:
+    """The leaf whose distance to the f32 model is largest against its
+    bound, ``CP_ACCURACY_RATIO`` times the one-device model's plus
+    ``CP_ACCURACY_SLACK``, and that ratio."""
+    ratio = {n: e[n] / (CP_ACCURACY_RATIO * e_one[n] + CP_ACCURACY_SLACK) for n in e}
+    name = max(ratio, key=ratio.get)
+    return {"leaf": name, "of_bound": ratio[name]}
+
+
 def cp_accuracy(ring: tuple, refs: dict) -> dict:
     """Phase 10's step-0 readings on rank 0 (see ``CP_LOSS_RTOL``): the
     losses' relative differences, each model's worst leaf distance to the
@@ -2310,26 +2351,16 @@ def cp_accuracy(ring: tuple, refs: dict) -> dict:
     (loss, grads), (one_loss, one), (uly_loss, uly), (_, f32) = (
         ring, refs["one_device"], refs["ulysses"], refs["f32"])
     e_one, e_ring, e_uly = (grad_errors(g, f32) for g in (one, grads, uly))
-
-    def worst(e):
-        name = max(e, key=e.get)
-        return {"leaf": name, "err": e[name]}
-
-    def over(e):
-        ratio = {n: e[n] / (CP_ACCURACY_RATIO * e_one[n] + CP_ACCURACY_SLACK) for n in e}
-        name = max(ratio, key=ratio.get)
-        return {"leaf": name, "of_bound": ratio[name]}
-
     c = {
         "loss": float(loss), "one_device_loss": float(one_loss),
         "ulysses_loss": float(uly_loss),
         "ring_loss_rel_err": abs(float(loss) - float(one_loss)) / abs(float(one_loss)),
         "ulysses_loss_rel_err": abs(float(uly_loss) - float(loss)) / abs(float(loss)),
-        "one_device_to_f32": worst(e_one), "ring_to_f32": worst(e_ring),
-        "ulysses_to_f32": worst(e_uly),
-        "ring_bound": over(e_ring), "ulysses_bound": over(e_uly),
-        "ring_to_one_device": worst(grad_errors(grads, one)),
-        "ulysses_to_ring": worst(grad_errors(uly, grads)),
+        "one_device_to_f32": _worst(e_one), "ring_to_f32": _worst(e_ring),
+        "ulysses_to_f32": _worst(e_uly),
+        "ring_bound": _over_bound(e_ring, e_one), "ulysses_bound": _over_bound(e_uly, e_one),
+        "ring_to_one_device": _worst(grad_errors(grads, one)),
+        "ulysses_to_ring": _worst(grad_errors(uly, grads)),
     }
     limits = {
         "ring_loss_rel_err": (c["ring_loss_rel_err"], CP_LOSS_RTOL),
@@ -2391,6 +2422,18 @@ def _cp_rank(gid: int, rank: int, cfg, batch: int, seq: int, device: str,
         use_async_quorum=False, timeout=600.0, quorum_timeout=600.0,
         init_sync=False,
     )
+    kernels = (fa.flash_fwd, fa.flash_bwd_kv, fa.flash_bwd_q)
+    # the step-0 references and planted faults launch kernels outside the
+    # training steps: counted apart, and taken off the path's own counts
+    def raw() -> dict:
+        return {(fn.__name__, kind): getattr(fn, kind) for fn in kernels
+                for kind in ("launches", "offset_launches")}
+
+    aside = dict.fromkeys(raw(), 0)
+
+    def counts(kind: str) -> dict:
+        return {fn.__name__: getattr(fn, kind) - aside[fn.__name__, kind] for fn in kernels}
+
     try:
         mesh = ft_init_device_mesh(
             manager, {"cp": CP_SIZE}, groups=world, device=device).mesh
@@ -2399,6 +2442,8 @@ def _cp_rank(gid: int, rank: int, cfg, batch: int, seq: int, device: str,
         optim = OptimizerWrapper(manager, opt)
         ddp = DistributedDataParallel(manager)
         records, checks = [], None
+        for fn in kernels:
+            fn.launches = fn.offset_launches = 0
         while manager.current_step() < CP_STEPS:
             phases0 = manager.phase_times()
             t0 = time.perf_counter()
@@ -2412,8 +2457,12 @@ def _cp_rank(gid: int, rank: int, cfg, batch: int, seq: int, device: str,
             refs, controls = {}, {}
             if gid == 0 and step == 0:
                 t_c = time.perf_counter()
+                before = raw()
                 refs, controls = _cp_step0_refs(model, cfg, mesh, tokens, rank)
                 sync()
+                after = raw()
+                for key in aside:
+                    aside[key] += after[key] - before[key]
                 t_c = time.perf_counter() - t_c  # no part of the step
                 t0, t1 = t0 + t_c, t1 + t_c
             stats0 = mesh.stats()
@@ -2451,13 +2500,14 @@ def _cp_rank(gid: int, rank: int, cfg, batch: int, seq: int, device: str,
             })
             log(f"  {tag} step {json.dumps(records[-1])}")
         digests = state_digests(model, opt)
-        kernels = (fa.flash_fwd, fa.flash_bwd_kv, fa.flash_bwd_q)
         return {
             "group": gid, "rank": rank, "steps": records, "checks": checks,
             "final_step": manager.current_step(), "digests": digests,
             "transport": transport,
-            "launches": {fn.__name__: fn.launches for fn in kernels},
-            "offset_launches": {fn.__name__: fn.offset_launches for fn in kernels},
+            "launches": counts("launches"),
+            "offset_launches": counts("offset_launches"),
+            "aside_launches": {fn.__name__: aside[fn.__name__, "launches"]
+                               for fn in kernels},
             "twin_calls": {fn.__name__: fn.calls for fn in (
                 fa.flash_fwd_plain, fa.flash_bwd_kv_plain, fa.flash_bwd_q_plain)},
             "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9 if on_card else None,
@@ -2567,9 +2617,13 @@ def cp_path(cfg=None, batch: int = 8, seq: int = 1024, device: str = "cuda",
             f"g{r['group']}r{r['rank']} differs from g0r0: {bad[:5]}")
     checks = runs[0]["checks"]
     assert checks is not None and all(r["checks"] is None for r in runs[1:]), "step-0 checks"
+    # each process's launches in its own training steps (the references'
+    # and planted faults' are kept apart)
+    counted = {f"g{r['group']}r{r['rank']}": r["launches"] for r in runs}
     names = runs[0]["launches"]
     launches = {n: sum(r["launches"][n] for r in runs) for n in names}
     offsets = {n: sum(r["offset_launches"][n] for r in runs) for n in names}
+    aside = {n: sum(r["aside_launches"][n] for r in runs) for n in names}
     twins = {n: sum(r["twin_calls"][n] for r in runs) for n in runs[0]["twin_calls"]}
     log(f"cp path: {CP_STEPS} steps committed in {len(runs)} processes; parameters "
         f"and AdamW state ({len(ref)} leaves) bitwise equal across them")
@@ -2581,8 +2635,8 @@ def cp_path(cfg=None, batch: int = 8, seq: int = 1024, device: str = "cuda",
     return {
         "processes": len(runs), "layers": cfg.n_layers, "cp": CP_SIZE,
         "batch": batch, "seq": seq, "transport": runs[0]["transport"],
-        "checks": checks, "launches": launches, "offset_launches": offsets,
-        "twin_calls": twins,
+        "checks": checks, "launches": launches, "launches_by_process": counted,
+        "offset_launches": offsets, "aside_launches": aside, "twin_calls": twins,
         "median_step_ms": med("step_ms"), "median_fwd_bwd_ms": med("fwd_bwd_ms"),
         "median_exchange_ms": med("exchange_ms"), "median_psum_ms": med("psum_ms"),
         "median_ring_ms": med("ring_ms"),
@@ -2612,8 +2666,484 @@ def log_cp(card: str, csum: dict) -> None:
         f"{json.dumps(csum['peak_memory_gb'])}, reserved "
         f"{json.dumps(csum['peak_reserved_gb'])}); host memory start/end GB "
         f"{json.dumps(csum['host_rss_gb'])}; phase wall {csum['wall_s']:.1f} s")
-    log(f"{card} | cp path kernel launches {json.dumps(csum['launches'])}, of which at "
-        f"a non-zero offset {json.dumps(csum['offset_launches'])}")
+    log(f"{card} | cp path kernel launches in its training steps "
+        f"{json.dumps(csum['launches'])}, of which at a non-zero offset "
+        f"{json.dumps(csum['offset_launches'])}; kept apart, the step-0 references' "
+        f"and planted faults' {json.dumps(csum['aside_launches'])}")
+
+
+# ---------------------------------------------------------------------------
+# phase 11: HSDP, fsdp x tp inside multi-process replica groups, with a
+# group killed and healed rank by rank
+# ---------------------------------------------------------------------------
+
+#: phase 11's inner mesh (each replica group's processes), its training
+#: steps, and the commit after which group 1's processes are killed
+HSDP_INNER = {"fsdp": 2, "tp": 2}
+HSDP_STEPS = 6
+HSDP_KILL_AFTER = 2
+#: Phase 11's planted fault: the fsdp reduce-scatter averages instead of
+#: summing.  The loss is unchanged, the sharded leaves' gradients are
+#: halved; it must fail one of HSDP_GRAD_CHECKS (phase 10's bounds, see
+#: CP_LOSS_RTOL).
+HSDP_CONTROLS = ("reduce_scatter_averaged",)
+HSDP_GRAD_CHECKS = ("sharded_bound", "sharded_to_one_device")
+
+
+@contextlib.contextmanager
+def reduce_scatter_averaged():
+    """Plant ``HSDP_CONTROLS``' fault for the duration of the block: every
+    reduce-scatter over the ``fsdp`` axis divides its sum by the axis
+    size."""
+    from torchft_tpu_torch.parallel.axis import MeshAxis
+
+    real = MeshAxis.reduce_scatter
+
+    def averaged(self, tensors, dims):
+        out = real(self, tensors, dims)
+        return [t / self.size for t in out] if self.name == "fsdp" else out
+
+    MeshAxis.reduce_scatter = averaged
+    try:
+        yield
+    finally:
+        MeshAxis.reduce_scatter = real
+
+
+def hsdp_accuracy(sharded: tuple, refs: dict) -> dict:
+    """Phase 11's step-0 readings on group 0's rank 0, with phase 10's
+    bounds: the sharded loss against the one-device model's, each model's
+    worst leaf distance to the f32 model, the sharded gradients' worst
+    ratio to their bound and their direct distance to the one-device
+    model's, and ``failed``, the names of the checks that these readings
+    fail."""
+    (loss, grads), (one_loss, one), (_, f32) = sharded, refs["one_device"], refs["f32"]
+    e_one, e_sh = grad_errors(one, f32), grad_errors(grads, f32)
+    c = {
+        "loss": float(loss), "one_device_loss": float(one_loss),
+        "loss_rel_err": abs(float(loss) - float(one_loss)) / abs(float(one_loss)),
+        "one_device_to_f32": _worst(e_one), "sharded_to_f32": _worst(e_sh),
+        "sharded_bound": _over_bound(e_sh, e_one),
+        "sharded_to_one_device": _worst(grad_errors(grads, one)),
+    }
+    limits = {
+        "loss_rel_err": (c["loss_rel_err"], CP_LOSS_RTOL),
+        "one_device_to_f32": (c["one_device_to_f32"]["err"], CP_F32_TOL),
+        "sharded_bound": (c["sharded_bound"]["of_bound"], 1.0),
+        "sharded_to_one_device": (c["sharded_to_one_device"]["err"], CP_GRAD_TOL),
+    }
+    # a NaN reading fails its check
+    c["failed"] = [n for n, (x, lim) in limits.items() if not x <= lim]
+    return c
+
+
+def _hsdp_step0_refs(whole: dict, cfg, tokens, device: str) -> dict:
+    """Phase 11's references on group 0's rank 0, on the whole weights and
+    the group's whole ``[B, T]`` tokens: the one-device flash model and the
+    same model in f32 with plain dense attention (no kernel).  Both
+    recompute each block in the backward (full remat, which changes no
+    value).  Returns their ``(loss, grads)`` by name."""
+    import dataclasses
+
+    import torch
+
+    from torchft_tpu_torch.models import transformer as tf
+
+    model = tf.Transformer(cfg, device)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.copy_(whole[name])
+    refs = {}
+    for name, impl, dtype in (("f32", "dense", torch.float32),
+                              ("one_device", "flash", cfg.dtype)):
+        ref_cfg = dataclasses.replace(cfg, attn_impl=impl, dtype=dtype, remat=True,
+                                      remat_policy="full")
+        use_config(model, ref_cfg)
+        refs[name] = tf.make_grad_step(ref_cfg)(model, tokens)
+    return refs
+
+
+def _hsdp_rank(gid: int, rank: int, life: int, cfg, batch: int, seq: int, device: str,
+               lighthouse_addr: str, store_addr: str, coordinator: str, park) -> dict:
+    """One process of phase 11: rank ``rank`` of replica group ``gid``'s
+    inner mesh ``HSDP_INNER``, in its ``life``-th incarnation (1 after the
+    restart).  Group 1's first incarnation sends its launches and steps on
+    ``park`` (its own pipe) after its ``HSDP_KILL_AFTER``-th commit and
+    waits to be killed."""
+    import torch
+
+    from torchft_tpu_torch import (
+        DistributedDataParallel,
+        Manager,
+        OptimizerWrapper,
+        ProcessGroupTCP,
+        module_grads,
+    )
+    from torchft_tpu_torch.models import transformer as tf
+    from torchft_tpu_torch.ops import flash_attention as fa
+    from torchft_tpu_torch.parallel.device_mesh import ft_init_device_mesh
+    from torchft_tpu_torch.parallel.multihost import initialize_multihost
+
+    tag = f"hsdp g{gid}r{rank}" + (" (restarted)" if life else "")
+    on_card = device == "cuda"
+    torch.backends.cuda.matmul.allow_tf32 = False  # the f32 reference stays f32
+    if not on_card:
+        torch.set_num_threads(2)  # eight processes share the host
+    rss_start = host_rss_gb()
+    size = math.prod(HSDP_INNER.values())
+    world = initialize_multihost(coordinator, size, rank, backend="gloo", timeout=600.0)
+    refs_here = gid == 0 and rank == 0 and life == 0
+    # every rank draws the whole model from one seed on the host, then
+    # keeps its shards
+    model = tf.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    whole = {n: p.detach().clone() for n, p in model.named_parameters()} if refs_here else None
+    opt = None
+
+    def sync() -> None:
+        if on_card:
+            torch.cuda.synchronize()
+
+    manager = Manager(
+        pg=ProcessGroupTCP(timeout=600.0), min_replica_size=2,
+        load_state_dict=lambda sd: (model.load_state_dict(sd["model"]),
+                                    opt.load_state_dict(sd["optim"])),
+        state_dict=lambda: {"model": model.state_dict(), "optim": opt.state_dict()},
+        lighthouse_addr=lighthouse_addr, replica_id=f"hsdp_group{gid}",
+        group_rank=rank, group_world_size=size, store_addr=store_addr,
+        use_async_quorum=False, timeout=600.0, quorum_timeout=600.0,
+        init_sync=False,
+    )
+    kernels = (fa.flash_fwd, fa.flash_bwd_kv, fa.flash_bwd_q)
+    # the step-0 references and planted controls launch kernels outside the
+    # training steps: counted apart, and taken off the path's own counts
+    aside = {fn.__name__: 0 for fn in kernels}
+
+    def launches() -> dict:
+        return {fn.__name__: fn.launches - aside[fn.__name__] for fn in kernels}
+
+    try:
+        mesh = ft_init_device_mesh(manager, HSDP_INNER, groups=world, device=device).mesh
+        transport = mesh.axis("fsdp").transport(device)
+        tf.shard_params(model, mesh)
+        model.to(device)
+        opt = torch.optim.AdamW(
+            model.parameters(), lr=3e-4, betas=(0.9, 0.95), eps=1e-8,
+            weight_decay=0.1,
+        )
+        grad_step = tf.make_grad_step(cfg, mesh)
+        optim = OptimizerWrapper(manager, opt)
+        ddp = DistributedDataParallel(manager)
+        axes = {name: mesh.axis(name) for name in HSDP_INNER}
+        records, checks, first_commit, heal = [], None, None, None
+        for fn in kernels:
+            fn.launches = 0
+        while manager.current_step() < HSDP_STEPS:
+            phases0 = manager.phase_times()
+            t0 = time.perf_counter()
+            optim.zero_grad()  # the quorum: a restarted rank heals here
+            t1 = time.perf_counter()
+            step = manager.current_step()
+            if life and heal is None:
+                phases = manager.phase_times()
+                info = manager.heal_info()
+                heal = {
+                    "step": step, "quorum_ms": (t1 - t0) * 1e3,
+                    "mode": info.get("mode"), "sources": info.get("sources"),
+                    "wire_bytes": info.get("wire_bytes", 0),
+                    "phases_ms": {k: (phases.get(k, 0.0) - phases0.get(k, 0.0)) * 1e3
+                                  for k in HEAL_PHASES},
+                }
+                log(f"  {tag} healed to step {step}: {json.dumps(heal)}")
+            tokens = torch.randint(
+                0, cfg.vocab_size, (batch, seq),
+                generator=torch.Generator().manual_seed(1000 * gid + step),
+            ).to(device)
+            step0 = gid == 0 and step == 0
+            refs, controls, t_c = None, {}, time.perf_counter()
+            if step0:
+                before = {fn.__name__: fn.launches for fn in kernels}
+                if refs_here:
+                    refs = _hsdp_step0_refs(whole, cfg, tokens, device)
+                whole = None
+                for kind in HSDP_CONTROLS:
+                    with reduce_scatter_averaged():
+                        faulty_loss, faulty = grad_step(model, tokens)
+                    got = tf.gather_params(faulty, cfg, mesh, keep=refs_here)
+                    if refs_here:
+                        controls[kind] = hsdp_accuracy((faulty_loss, got), refs)
+                    del faulty, got
+                sync()
+                for fn in kernels:
+                    aside[fn.__name__] += fn.launches - before[fn.__name__]
+            t_c = time.perf_counter() - t_c  # the references are no part of the step
+            stats0 = {a: dict(ax.stats) for a, ax in axes.items()}
+            t1b = time.perf_counter()
+            loss, grads = grad_step(model, tokens)
+            sync()
+            t2 = time.perf_counter()
+            stats = {a: {k: v - stats0[a].get(k, 0) for k, v in ax.stats.items()}
+                     for a, ax in axes.items()}
+            t_k = time.perf_counter()
+            if step0:
+                got = tf.gather_params(grads, cfg, mesh, keep=refs_here)
+                if refs_here:
+                    checks = hsdp_accuracy((loss, got), refs)
+                    checks["controls"] = controls
+                    log(f"  {tag} step-0 checks: {json.dumps(checks)}")
+                    assert not checks["failed"], checks
+                    for kind, c in controls.items():
+                        # the checks must catch each planted fault
+                        assert set(c["failed"]) & set(HSDP_GRAD_CHECKS), (kind, c)
+                del got, refs
+                sync()
+            t_k = time.perf_counter() - t_k
+            avg = ddp.allreduce_gradients(module_grads(model)).wait(timeout=600)
+            committed = optim.step(model, avg)
+            del avg
+            sync()
+            t3 = time.perf_counter()
+            phases = manager.phase_times()
+            fs, tp = stats.get("fsdp", {}), stats.get("tp", {})
+            comm = {
+                "fsdp_gather_ms": fs.get("all_gather_s", 0.0) * 1e3,
+                "reduce_scatter_ms": fs.get("reduce_scatter_s", 0.0) * 1e3,
+                "fsdp_psum_ms": fs.get("psum_s", 0.0) * 1e3,
+                "tp_ms": sum(tp.get(f"{op}_s", 0.0) for op in (
+                    "psum", "all_gather", "reduce_scatter")) * 1e3,
+            }
+            fwd_bwd_ms = (t2 - t1b) * 1e3
+            records.append({
+                "group": gid, "rank": rank, "life": life, "step": step,
+                "loss": float(loss), "committed": committed,
+                "step_ms": (t3 - t0 - t_c - t_k) * 1e3, "quorum_ms": (t1 - t0) * 1e3,
+                "fwd_bwd_ms": fwd_bwd_ms,
+                "compute_ms": fwd_bwd_ms - sum(comm.values()), **comm,
+                "ring_ms": (phases.get("ring", 0.0) - phases0.get("ring", 0.0)) * 1e3,
+                "bytes": {a: {k[:-6]: int(v) for k, v in s.items() if k.endswith("_bytes")}
+                          for a, s in stats.items()},
+            })
+            log(f"  {tag} step {json.dumps(records[-1])}")
+            if committed and first_commit is None:
+                first_commit = step
+            if gid == 1 and life == 0 and manager.current_step() == HSDP_KILL_AFTER:
+                park.send({"launches": launches(), "steps": records})
+                while True:  # SIGKILLed here by the parent
+                    time.sleep(60.0)
+        return {
+            "group": gid, "rank": rank, "life": life, "steps": records,
+            "checks": checks, "final_step": manager.current_step(),
+            "first_commit": first_commit, "heal": heal,
+            "digests": state_digests(model, opt), "transport": transport,
+            "params": sum(p.numel() for p in model.parameters()),
+            "launches": launches(), "aside_launches": aside,
+            "twin_calls": {fn.__name__: fn.calls for fn in (
+                fa.flash_fwd_plain, fa.flash_bwd_kv_plain, fa.flash_bwd_q_plain)},
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9 if on_card else None,
+            "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9 if on_card else None,
+            "host_rss_start_gb": rss_start, "host_rss_end_gb": host_rss_gb(),
+        }
+    finally:
+        manager.shutdown()
+
+
+def hsdp_worker(gid: int, rank: int, life: int, args: tuple, park, results) -> None:
+    """The target of a phase-11 process: runs :func:`_hsdp_rank` and puts
+    ``("ok", gid, rank, summary)`` or ``("error", gid, rank, traceback)``
+    on ``results``; an error also exits non-zero.  A process that is to be
+    killed reports on ``park`` instead: a pipe of its own, which holds no
+    lock that the kill could leave taken (a ``Queue`` does)."""
+    try:
+        results.put(("ok", gid, rank, _hsdp_rank(gid, rank, life, *args, park)))
+    except BaseException:  # noqa: BLE001 - reported to the parent, re-raised
+        results.put(("error", gid, rank, traceback.format_exc()))
+        raise
+
+
+def hsdp_path(cfg=None, batch: int = 8, seq: int = 1024, device: str = "cuda",
+              timeout: float = 900.0) -> "dict":
+    """Phase 11: two replica groups of ``HSDP_INNER`` processes each (8 on
+    one card), spawned as in phase 10, train the flagship with its weights
+    sharded over fsdp x tp; group 1's processes are SIGKILLed after their
+    ``HSDP_KILL_AFTER``-th commit and restarted, and each heals from the
+    same rank of group 0 at the survivors' step.  Any child's failure or
+    non-zero exit fails the phase; children still running at the end are
+    killed.  ``cfg``/``batch``/``seq``/``device`` let a CPU rehearsal drive
+    the same code at a tiny size."""
+    import dataclasses
+    import multiprocessing as mp
+
+    from torchft_tpu_torch.coordination import LighthouseServer, StoreServer
+
+    if cfg is None:
+        cfg = dataclasses.replace(flagship_config(), remat=True, remat_policy="full")
+    size = math.prod(HSDP_INNER.values())
+    ctx = mp.get_context("spawn")
+    lighthouse = LighthouseServer(
+        min_replicas=2, join_timeout_ms=100, heartbeat_timeout_ms=5000
+    )
+    stores = [StoreServer() for _ in range(2)]
+    results = ctx.Queue()
+    procs: "dict" = {}
+    parks: "dict" = {}
+    t_start = time.perf_counter()
+    alloc_env = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+
+    def spawn(gid: int, life: int) -> None:
+        coordinator = f"127.0.0.1:{_free_port()}"
+        for rank in range(size):
+            args = (cfg, batch, seq, device, lighthouse.address(),
+                    stores[gid].address(), coordinator)
+            recv, send = ctx.Pipe(duplex=False)
+            p = ctx.Process(target=hsdp_worker,
+                            args=(gid, rank, life, args, send, results),
+                            name=f"hsdp_g{gid}r{rank}_life{life}", daemon=True)
+            p.start()
+            send.close()
+            procs[(gid, rank, life)] = p
+            parks[(gid, rank, life)] = recv
+
+    out, parked, killed_at = {}, {}, None
+    try:
+        for gid in range(2):
+            spawn(gid, 0)
+        deadline = time.monotonic() + timeout
+        while len(out) < 2 * size:
+            if killed_at is None:
+                for rank in range(size):
+                    if rank not in parked and parks[(1, rank, 0)].poll():
+                        parked[rank] = parks[(1, rank, 0)].recv()
+                if len(parked) == size:
+                    for r in range(size):
+                        procs[(1, r, 0)].kill()
+                    for r in range(size):
+                        procs[(1, r, 0)].join(30)
+                    killed_at = time.perf_counter() - t_start
+                    log(f"hsdp path: group 1's {size} processes SIGKILLed after commit "
+                        f"{HSDP_KILL_AFTER} ({killed_at:.1f} s into the phase); restarting")
+                    spawn(1, 1)
+            try:
+                status, gid, rank, body = results.get(timeout=0.5)
+            except queue.Empty:
+                # a child that died before reporting fails the phase now,
+                # not at the deadline (the killed incarnation excepted)
+                dead = [p.name for k, p in procs.items() if p.exitcode not in (None, 0)
+                        and not (k[0] == 1 and k[2] == 0 and killed_at is not None)]
+                if dead or time.monotonic() > deadline:
+                    raise RuntimeError(
+                        f"phase 11: processes {dead} died without a result"
+                        if dead else f"phase 11: no result within {timeout} s")
+                continue
+            if status == "error":
+                raise RuntimeError(f"phase 11 process g{gid}r{rank} failed:\n{body}")
+            out[(gid, rank)] = body
+        for k, p in procs.items():
+            if k[0] == 1 and k[2] == 0:
+                continue
+            p.join(max(1.0, deadline - time.monotonic()))
+            if p.exitcode != 0:
+                raise RuntimeError(f"phase 11 process {p.name} exited with {p.exitcode}")
+    finally:
+        if alloc_env is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc_env
+        for p in procs.values():
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+        for c in parks.values():
+            c.close()
+        lighthouse.shutdown()
+        for s in stores:
+            s.shutdown()
+    wall = time.perf_counter() - t_start
+
+    def tag(r):
+        return f"g{r['group']}r{r['rank']}"
+
+    assert len(parked) == size and killed_at is not None, "group 1 was never killed"
+    runs = [out[k] for k in sorted(out)]
+    for r in runs:
+        assert r["final_step"] == HSDP_STEPS, (r["group"], r["rank"], r["final_step"])
+        assert all(s["committed"] for s in r["steps"]), (r["group"], r["rank"])
+        assert all(math.isfinite(s["loss"]) for s in r["steps"])
+    survivors = [r for r in runs if r["group"] == 0]
+    healed = [r for r in runs if r["group"] == 1]
+    assert all(r["life"] == 1 for r in healed)
+    for r in healed:
+        # the restarted rank healed live to the survivors' step, over the
+        # wire, and its first commit landed there, not at step 0
+        assert r["heal"] is not None and r["heal"]["step"] == HSDP_KILL_AFTER, r["heal"]
+        assert r["heal"]["wire_bytes"] > 0, r["heal"]
+        assert r["first_commit"] == HSDP_KILL_AFTER, r["first_commit"]
+    # rank r of each group ends with the same parameters and AdamW state
+    for a, b in zip(survivors, healed):
+        bad = [n for n in a["digests"] if b["digests"].get(n) != a["digests"][n]]
+        assert not bad and len(a["digests"]) == len(b["digests"]), (
+            f"g1r{b['rank']} differs from g0r{a['rank']}: {bad[:5]}")
+    checks = survivors[0]["checks"]
+    assert checks is not None and all(r["checks"] is None for r in runs[1:]), "step-0 checks"
+    # each process's launches in its own training steps (the references'
+    # and controls' are kept apart)
+    counted = {tag(r): r["launches"] for r in runs}
+    counted.update({f"g1r{rank}_killed": p["launches"] for rank, p in parked.items()})
+    names = runs[0]["launches"]
+    launches = {n: sum(c[n] for c in counted.values()) for n in names}
+    aside = {n: sum(r["aside_launches"][n] for r in runs) for n in names}
+    twins = {n: sum(r["twin_calls"][n] for r in runs) for n in runs[0]["twin_calls"]}
+    log(f"hsdp path: {HSDP_STEPS} steps committed in {len(runs)} processes, group 1 "
+        f"healed rank by rank at step {HSDP_KILL_AFTER}; rank r's parameters and AdamW "
+        f"state ({len(runs[0]['digests'])} leaves) bitwise equal across the groups")
+    step_recs = [s for r in survivors for s in r["steps"] if s["step"] > 0]
+
+    def med(key):
+        return statistics.median(s[key] for s in step_recs) if step_recs else None
+
+    return {
+        "processes": len(runs), "layers": cfg.n_layers, "inner": HSDP_INNER,
+        "batch": batch, "seq": seq, "transport": runs[0]["transport"],
+        "params_per_rank": runs[0]["params"], "checks": checks,
+        "launches": launches, "launches_by_process": counted,
+        "aside_launches": aside, "twin_calls": twins,
+        "median_ms": {k: med(k) for k in (
+            "step_ms", "fwd_bwd_ms", "compute_ms", "fsdp_gather_ms", "reduce_scatter_ms",
+            "fsdp_psum_ms", "tp_ms", "ring_ms", "quorum_ms")},
+        "bytes_per_step": step_recs[0]["bytes"] if step_recs else None,
+        "heals": {tag(r): r["heal"] for r in healed},
+        "killed_at_s": killed_at,
+        "steps": [s for r in runs for s in r["steps"]],
+        "peak_memory_gb": {tag(r): r["peak_memory_gb"] for r in runs},
+        "peak_reserved_gb": {tag(r): r["peak_reserved_gb"] for r in runs},
+        "host_rss_gb": {tag(r): (r["host_rss_start_gb"], r["host_rss_end_gb"]) for r in runs},
+        "wall_s": wall,
+    }
+
+
+def log_hsdp(card: str, hsum: dict) -> None:
+    """Phase 11's numbers, each line beside the card's name and power limit."""
+    m = hsum["median_ms"]
+    log(f"{card} | hsdp path ({hsum['processes']} processes: 2 groups x "
+        f"{json.dumps(hsum['inner'])}, {hsum['layers']} layers, B={hsum['batch']} "
+        f"T={hsum['seq']}, {hsum['params_per_rank']} parameters a rank, in-group transport "
+        f"{hsum['transport']}): median step {m['step_ms']:.1f} ms = compute "
+        f"{m['compute_ms']:.1f} + fsdp gather {m['fsdp_gather_ms']:.1f} + fsdp "
+        f"reduce-scatter {m['reduce_scatter_ms']:.1f} + fsdp psum {m['fsdp_psum_ms']:.1f} "
+        f"+ tp {m['tp_ms']:.1f} ms (forward+backward {m['fwd_bwd_ms']:.1f}), quorum "
+        f"{m['quorum_ms']:.1f} ms, FT ring phase {m['ring_ms']:.1f} ms")
+    log(f"{card} | hsdp path bytes sent per rank per step, by axis and op: "
+        + json.dumps(hsum["bytes_per_step"]))
+    log(f"{card} | hsdp path step-0 checks (group 0, rank 0): " + json.dumps(hsum["checks"]))
+    log(f"{card} | hsdp path heals (group 1 killed {hsum['killed_at_s']:.1f} s into the "
+        "phase): " + json.dumps(hsum["heals"]))
+    log(f"{card} | hsdp path peak device memory per process (GB allocated "
+        f"{json.dumps(hsum['peak_memory_gb'])}, reserved "
+        f"{json.dumps(hsum['peak_reserved_gb'])}); host memory start/end GB "
+        f"{json.dumps(hsum['host_rss_gb'])}; phase wall {hsum['wall_s']:.1f} s")
+    log(f"{card} | hsdp path kernel launches in its training steps "
+        f"{json.dumps(hsum['launches'])} (by process "
+        f"{json.dumps(hsum['launches_by_process'])}); kept apart, the step-0 "
+        f"references' and planted controls' {json.dumps(hsum['aside_launches'])}")
 
 
 def main() -> int:
@@ -2662,6 +3192,12 @@ def main() -> int:
         f"C (Q, dO, 2 x (K, V)) {(2 * 128 + 4 * 32) * dp * 2} B")
 
     kernels = check_kernels()
+    # B and C together do the work of SDPA's one backward call (dK and dV,
+    # dQ): the pair is what compares with it
+    pair = kernels["times"]["flash_bwd_kv"][0] + kernels["times"]["flash_bwd_q"][0]
+    lib_bwd = kernels["library"]["flash_bwd_kv"]
+    log(f"{card} | kernels B + C {pair:.4f} ms against SDPA's backward {lib_bwd} ms"
+        + (f" ({pair / lib_bwd:.2f}x its time)" if lib_bwd else ""))
     quant = check_quant_kernels()
     torch.cuda.empty_cache()
     small = check_small_models()
@@ -2807,19 +3343,38 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # phase 10's kernels launch in its child processes: their counts come
-    # back in the summary (the parent's stay 0)
+    # phase 10's kernels launch in its child processes: the counts of their
+    # training steps come back in the summary (the parent's stay 0)
     cpsum, cp_parent, cp_parent_twins = drive(cp_path)
     cp_launches = cpsum["launches"]
-    log(f"cp path launches {cp_launches} summed over its processes (the parent "
+    log(f"cp path launches {cp_launches} in the training steps of its processes (the parent "
         f"{cp_parent}), of them at a non-zero offset {cpsum['offset_launches']}; "
         f"plain twin calls {cpsum['twin_calls']} (the parent {cp_parent_twins})")
     assert all(cp_launches[k] > 0 for k in ("flash_fwd", "flash_bwd_kv", "flash_bwd_q")), cp_launches
+    # and every process launched each kernel in its own training steps
+    assert all(n > 0 for c in cpsum["launches_by_process"].values()
+               for n in c.values()), cpsum["launches_by_process"]
     assert all(v > 0 for v in cpsum["offset_launches"].values()), cpsum["offset_launches"]
     assert all(n == 0 for n in cpsum["twin_calls"].values()), cpsum["twin_calls"]
     assert all(n == 0 for n in cp_parent_twins.values()), cp_parent_twins
     log_cp(card, cpsum)
     log(f"cp path on {card}: " + json.dumps(cpsum))
+
+    # phase 11's kernels launch in its child processes, as phase 10's
+    hdsum, hd_parent, hd_parent_twins = drive(hsdp_path)
+    hd_launches = hdsum["launches"]
+    log(f"hsdp path launches {hd_launches} in the training steps of its processes (the parent "
+        f"{hd_parent}); plain twin calls {hdsum['twin_calls']} (the parent "
+        f"{hd_parent_twins})")
+    assert all(hd_launches[k] > 0 for k in ("flash_fwd", "flash_bwd_kv", "flash_bwd_q")), hd_launches
+    # every process, survivors, killed and healed ranks alike, launched
+    # each kernel in its own training steps
+    assert all(n > 0 for c in hdsum["launches_by_process"].values()
+               for n in c.values()), hdsum["launches_by_process"]
+    assert all(n == 0 for n in hdsum["twin_calls"].values()), hdsum["twin_calls"]
+    assert all(n == 0 for n in hd_parent_twins.values()), hd_parent_twins
+    log_hsdp(card, hdsum)
+    log(f"hsdp path on {card}: " + json.dumps(hdsum))
 
     sources = {
         "flash_fwd": ("torchft_tpu_torch/csrc/flash_fwd.cu",
@@ -2838,15 +3393,16 @@ def main() -> int:
     checks = {}
     for part in ("max_abs", "times", "bounds", "library"):
         checks[part] = {**kernels[part], **quant[part]}
-    # launches: the DDP, heal, DiLoCo, cold-restore, reshard, MoE serving
-    # and cp paths' runs together (each counted from 0; the cp path's in
-    # its processes); E and F have no caller on any
+    # launches: the DDP, heal, DiLoCo, cold-restore, reshard, MoE serving,
+    # cp and HSDP paths' runs together (each counted from 0; the cp and
+    # HSDP paths' in the training steps of their processes, without the
+    # step-0 references and planted faults); E and F have no caller on any
     record = {"kernels": [
         {
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": sum(run.get(name, 0) for run in (
                 launches, h_launches, d_launches, c_launches, r_launches,
-                m_launches, cp_launches)),
+                m_launches, cp_launches, hd_launches)),
             "max_abs_err": checks["max_abs"][name],
             "ms": checks["times"][name][0],
             "plain_ms": checks["times"][name][1],

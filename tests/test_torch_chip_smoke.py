@@ -94,6 +94,8 @@ def test_cp_path_rehearsal_on_cpu():
         assert set(chip_smoke.CP_RING_GRAD_CHECKS) <= set(c["failed"]), (kind, c)
     # kernels run as their twins in the children on CPU tensors
     assert summary["launches"] == {"flash_fwd": 0, "flash_bwd_kv": 0, "flash_bwd_q": 0}
+    assert summary["launches_by_process"] == {
+        f"g{g}r{r}": summary["launches"] for g in range(2) for r in range(2)}
     assert all(n > 0 for n in summary["twin_calls"].values())
 
 
@@ -107,6 +109,53 @@ def test_cp_path_fails_when_a_child_fails():
     )
     with pytest.raises(RuntimeError, match="do not split over"):
         chip_smoke.cp_path(cfg, batch=1, seq=255, device="cpu", timeout=60.0)
+
+
+def test_hsdp_path_rehearsal_on_cpu():
+    """Phase 11 at a tiny f32 size through the same spawn code: eight
+    processes (two groups x fsdp 2 x tp 2), a Manager per process, 1 KV
+    head that tp = 2 does not divide (the flagship's case); group 1 is
+    SIGKILLed after its second commit, restarted, and heals rank by rank.
+    The path itself asserts six commits everywhere, the heal at the
+    survivors' step, the step-0 checks and the planted fault caught, and
+    rank r of both groups bitwise equal."""
+    cfg = tf.TransformerConfig(
+        vocab_size=256, d_model=64, n_heads=2, n_kv_heads=1, d_ff=128,
+        n_layers=2, max_seq_len=128, dtype=torch.float32, remat=True,
+        attn_impl="flash",
+    )
+    summary = chip_smoke.hsdp_path(cfg, batch=4, seq=128, device="cpu", timeout=120.0)
+    assert summary["processes"] == 8
+    # group 0: 6 steps x 4 ranks; the restarted group 1: steps 2..5 x 4
+    assert len(summary["steps"]) == 24 + 16
+    assert summary["params_per_rank"] == sum(
+        p.numel() for p in tf.Transformer(cfg, "cpu").parameters()
+        if p.dim() > 1) // 4 + (2 * 2 + 1) * 64
+    heals = summary["heals"]
+    assert sorted(heals) == [f"g1r{r}" for r in range(4)]
+    assert all(h["step"] == chip_smoke.HSDP_KILL_AFTER and h["wire_bytes"] > 0
+               for h in heals.values())
+    # f32 on the CPU: the sharded model and the one-device model agree
+    # with the f32 dense model to rounding; the control is off by half
+    checks = summary["checks"]
+    assert checks["failed"] == [] and checks["loss_rel_err"] < 1e-5
+    for key in ("one_device_to_f32", "sharded_to_f32", "sharded_to_one_device"):
+        assert checks[key]["err"] < 1e-5, (key, checks[key])
+    control = checks["controls"]["reduce_scatter_averaged"]
+    assert set(chip_smoke.HSDP_GRAD_CHECKS) <= set(control["failed"])
+    assert abs(control["sharded_to_one_device"]["err"] - 0.5) < 1e-4
+    # every step moved bytes on both axes: fsdp gathers and reduce-scatters,
+    # tp psums (and the KV weights' gather)
+    moved = summary["bytes_per_step"]
+    assert moved["fsdp"]["all_gather"] > 0 and moved["fsdp"]["reduce_scatter"] > 0
+    assert moved["tp"]["psum"] > 0 and moved["tp"]["all_gather"] > 0
+    # kernels run as their twins in the children on CPU tensors
+    assert summary["launches"] == {"flash_fwd": 0, "flash_bwd_kv": 0, "flash_bwd_q": 0}
+    # every process's training steps are counted, the killed ones' too
+    assert sorted(summary["launches_by_process"]) == sorted(
+        [f"g{g}r{r}" for g in range(2) for r in range(4)]
+        + [f"g1r{r}_killed" for r in range(4)])
+    assert all(n > 0 for n in summary["twin_calls"].values())
 
 
 def _run(args, cwd, env):

@@ -170,6 +170,12 @@ def test_what_is_not_ported_under_a_mesh_raises():
     model = ttf.init_params(torch.Generator().manual_seed(0), tcfg, "cpu")
     with pytest.raises(ValueError, match="requires a mesh"):
         model(tokens)
+    # pp and ep under a mesh are not ported yet; fsdp is (weights sharded:
+    # an unsharded model is refused with a pointer to shard_params)
+    for axis in ("pp", "ep"):
+        mesh = InnerMesh([MeshAxis(axis, _FakeGroup(), 0, 2)], "cpu")
+        with pytest.raises(NotImplementedError, match="3\\(c\\)"):
+            ttf.loss_fn(model, tokens, mesh)
     fsdp = InnerMesh([MeshAxis("fsdp", _FakeGroup(), 0, 2)], "cpu")
-    with pytest.raises(NotImplementedError, match="3\\(c\\)"):
+    with pytest.raises(ValueError, match="shard_params"):
         ttf.loss_fn(model, tokens, fsdp)

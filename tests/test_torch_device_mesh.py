@@ -152,13 +152,24 @@ def test_ft_init_device_mesh_builds_row_major_axes_over_thread_ranks():
 
 
 def test_ft_init_device_mesh_refuses_what_it_cannot_build():
+    """pp and ep are not ported yet; fsdp and tp are (HSDP), and build
+    their groups like any other axis."""
     worlds = multihost.local_worlds(2)
-    with pytest.raises(NotImplementedError, match="3\\(c\\)"):
-        tdm.ft_init_device_mesh(None, {"fsdp": 2}, groups=worlds[0], device="cpu")
+    for axis in ("pp", "ep"):
+        with pytest.raises(NotImplementedError, match="3\\(c\\)"):
+            tdm.ft_init_device_mesh(None, {axis: 2}, groups=worlds[0], device="cpu")
     with pytest.raises(ValueError, match="needs 4 ranks"):
         tdm.ft_init_device_mesh(None, {"cp": 4}, groups=worlds[0], device="cpu")
     one = tdm.ft_init_device_mesh(None, {"dp": 1, "tp": 1}, device="cpu")
     assert one.mesh.shape == {"dp": 1, "tp": 1} and one.mesh.size == 1
+
+    def rank(r):
+        mesh = tdm.ft_init_device_mesh(None, {"fsdp": 2}, groups=worlds[r], device="cpu").mesh
+        x = torch.tensor([r + 1.0])
+        mesh.axis("fsdp").psum_([x])
+        return mesh.axis_index("fsdp"), x.item()
+
+    assert multihost.run_ranks(rank, 2, timeout=60.0) == [(0, 3.0), (1, 3.0)]
 
 
 def test_shift_and_all_to_all_match_jax_bitwise():
@@ -192,6 +203,52 @@ def test_shift_and_all_to_all_match_jax_bitwise():
         np.testing.assert_array_equal(shifted.numpy(), np.asarray(j_shift)[2 * r:2 * r + 2])
         assert torch.equal(bf_bits, bits + (r - 1) % n)
         np.testing.assert_array_equal(a2a.numpy(), j_a2a[r])
+
+
+def test_all_gather_and_reduce_scatter_match_jax_bitwise():
+    """``MeshAxis.all_gather`` against ``jax.lax.all_gather(tiled=True)``
+    and ``reduce_scatter`` against ``jax.lax.psum_scatter(tiled=True)``
+    over 4 ranks, several tensors of one call along their own dims; bf16
+    crosses the gather as its 16-bit pattern, and the reduce-scatter of a
+    bf16 tensor sums in f32 and rounds once."""
+    n = 4
+    rng = np.random.default_rng(4)
+    a = rng.standard_normal((n * 2, 6)).astype(np.float32)
+    b = rng.standard_normal((n * 3, n * 4)).astype(np.float32)
+    mesh = Mesh(np.array(jax.devices()[:n]), ("fsdp",))
+
+    def body(xa, xb):
+        return (jax.lax.all_gather(xa, "fsdp", axis=0, tiled=True),
+                jax.lax.psum_scatter(xb, "fsdp", scatter_dimension=1, tiled=True))
+
+    j_gather, j_rs = jax.shard_map(
+        body, mesh=mesh, in_specs=(P("fsdp"), P("fsdp")),
+        out_specs=(P("fsdp"), P("fsdp")))(jnp.asarray(a), jnp.asarray(b))
+    j_gather = np.asarray(j_gather).reshape(n, n * 2, 6)
+    j_rs = np.asarray(j_rs).reshape(n, 3, 4)
+    bits = torch.from_numpy(rng.integers(-2**15, 2**15, (3, 2), dtype=np.int16))
+    worlds = multihost.local_worlds(n)
+
+    def rank(r):
+        axis = MeshAxis("fsdp", worlds[r].new_group("fsdp", range(n)), r, n)
+        bf = (bits + r).view(torch.bfloat16)
+        got_a, got_bf = axis.all_gather([torch.from_numpy(a[2 * r:2 * r + 2]), bf], [0, 1])
+        (got_b,) = axis.reduce_scatter([torch.from_numpy(b[3 * r:3 * r + 3])], [1])
+        halves = torch.full((2, n), 0.5 + r, dtype=torch.bfloat16)
+        (got_h,) = axis.reduce_scatter([halves], [1])
+        return got_a, got_bf.view(torch.int16), got_b, got_h, dict(axis.stats)
+
+    out = multihost.run_ranks(rank, n, timeout=60.0)
+    for r, (got_a, got_bf, got_b, got_h, stats) in enumerate(out):
+        np.testing.assert_array_equal(got_a.numpy(), j_gather[r])
+        assert torch.equal(got_bf, torch.cat([bits + i for i in range(n)], dim=1))
+        np.testing.assert_array_equal(got_b.numpy(), j_rs[r])
+        # 0.5 + 1.5 + 2.5 + 3.5 = 8, exact in bf16 only once summed in f32
+        assert got_h.dtype == torch.bfloat16 and torch.equal(
+            got_h, torch.full((2, 1), 8.0, dtype=torch.bfloat16))
+        # bytes sent: the shards to 3 peers; the f32 blocks for 3 peers
+        assert stats["all_gather_bytes"] == 3 * (2 * 6 * 4 + 3 * 2 * 2)
+        assert stats["reduce_scatter_bytes"] == 3 * (3 * 4 * 4 + 2 * 1 * 4)
 
 
 def test_initialize_multihost_over_a_tcp_store():

@@ -8,11 +8,16 @@ the way in and out.  A MoE block's leaves (``router [L, d, E]``,
 ``w_gate``/``w_up [L, E, d, f]``, ``w_down [L, E, f, d]``) keep the JAX
 layout in the port, so they move as they are.  Both directions go through
 numpy.
+
+Sharded weights (fsdp, tp): ``params_from_jax(..., mesh=...)`` gives a
+rank the blocks of the JAX pytree that JAX's ``shard_params`` gives the
+device at the same place of the same mesh, and :func:`gather_to_jax`
+puts every rank's blocks back together into the whole pytree.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -21,6 +26,8 @@ from torchft_tpu_torch.models.transformer import (
     MOE_LEAVES,
     Transformer,
     TransformerConfig,
+    param_specs,
+    shard_params,
 )
 
 #: stacked JAX block leaves that are matrices (transposed to [out, in])
@@ -41,9 +48,12 @@ def params_from_jax(
     tree: "Mapping[str, Any]",
     cfg: TransformerConfig,
     device: "str | torch.device" = "cuda",
+    mesh: Any = None,
 ) -> Transformer:
     """A :class:`Transformer` holding the weights of the JAX pytree ``tree``
-    (numpy arrays, as ``jax.tree_util.tree_map(np.asarray, params)``)."""
+    (numpy arrays, as ``jax.tree_util.tree_map(np.asarray, params)``); with
+    an inner ``mesh``, only this rank's shards of them
+    (:func:`~torchft_tpu_torch.models.transformer.shard_params`)."""
     model = Transformer(cfg, device)
 
     def put(param: torch.Tensor, value: Any) -> None:
@@ -59,6 +69,8 @@ def params_from_jax(
                 put(getattr(block, name), blocks[name][layer])
             for name in matrices:
                 put(getattr(block, name).weight, np.asarray(blocks[name][layer]).T)
+    if mesh is not None:
+        shard_params(model, mesh)
     return model
 
 
@@ -88,3 +100,35 @@ def params_to_jax(
         "blocks": blocks,
         "final_norm": get("final_norm"),
     }
+
+
+def gather_to_jax(
+    shards: "Sequence[Mapping[str, torch.Tensor] | Transformer]",
+    cfg: TransformerConfig,
+    mesh_shape: "Mapping[str, int]",
+) -> "Dict[str, Any]":
+    """The whole JAX pytree (numpy f32) from every rank's shards, in rank
+    order over the inner mesh ``mesh_shape`` (row-major, as
+    ``ft_init_device_mesh`` lays the ranks out): each rank's parameters, or
+    anything keyed by their names, such as its gradients."""
+    names = list(mesh_shape)
+    sizes = tuple(int(n) for n in mesh_shape.values())
+    if len(shards) != int(np.prod(sizes, dtype=np.int64)):
+        raise ValueError(f"{len(shards)} ranks for the mesh {dict(mesh_shape)}")
+    shards = [dict(s.named_parameters()) if isinstance(s, torch.nn.Module) else s
+              for s in shards]
+    whole: Dict[str, np.ndarray] = {}
+    for name, spec in param_specs(cfg, mesh_shape).items():
+        first = shards[0][name].detach().float().cpu().numpy()
+        full = np.empty(
+            [n * (mesh_shape[a] if a else 1) for n, a in zip(first.shape, spec)],
+            np.float32)
+        for rank, named in enumerate(shards):
+            coords = dict(zip(names, np.unravel_index(rank, sizes)))
+            index = tuple(
+                slice(None) if a is None else
+                slice(int(coords[a]) * n, (int(coords[a]) + 1) * n)
+                for n, a in zip(first.shape, spec))
+            full[index] = named[name].detach().float().cpu().numpy()
+        whole[name] = full
+    return params_to_jax({n: torch.from_numpy(a) for n, a in whole.items()}, cfg)

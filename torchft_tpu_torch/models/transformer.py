@@ -22,6 +22,30 @@ replicated weights are summed over the inner axes (``jit`` sums them
 implicitly in the JAX package).  MoE and ``remat_policy="dots"`` under an
 inner mesh are not ported yet (ROADMAP §A 3(c)).
 
+Weight sharding (fsdp, tp).  :func:`param_specs` gives each parameter the
+JAX package's partition (its ``param_specs`` in this layout, whose matrices
+are ``[out, in]``) and :func:`shard_params` keeps only this rank's block of
+each: the module's parameters are then shard-shaped, and AdamW, being
+elementwise, steps on the shards unchanged.  Sharding is written by hand
+over the mesh axes (``parallel/axis.py``), where the JAX package leaves it
+to GSPMD:
+
+- ``fsdp``: rows of the batch split over it (with ``dp``), and each
+  block's weights, cast to the compute dtype first, are all-gathered in the
+  block's forward (again in the recompute under remat); the gather's
+  backward reduce-scatters the gradients back to the shards;
+- ``tp``: ``wq``/``wk``/``wv``/``w_gate``/``w_up`` are column-parallel and
+  ``wo``/``w_down`` row-parallel (identity forward / psum backward before
+  the first, psum forward after the second); attention runs on the rank's
+  ``n_heads / tp`` heads (kernels A-C under ``attn_impl="flash"``).  When
+  ``tp`` does not divide ``n_kv_heads``, ``wk`` and ``wv`` are gathered over
+  ``tp`` and the K/V heads expanded before the rank picks its own, so no
+  head is split across ranks (``_expand_kv_for_tp`` of the JAX package);
+- the tied embedding is split ``(tp, fsdp)``: the lookup gives zero outside
+  the rank's vocabulary rows and is summed over ``tp``; the head and the
+  loss are vocab-parallel (each rank's ``V / tp`` logits, the logsumexp
+  from a max and a sum over ``tp``, the target's logit from its owner).
+
 Rematerialization: ``remat=True`` recomputes each block in the backward
 (``torch.utils.checkpoint``).  ``remat_policy="full"`` keeps only the block
 inputs; ``"dots"`` is the JAX package's ``dots_saveable``: selective
@@ -29,14 +53,15 @@ activation checkpointing keeps every matmul's output (``aten.mm``,
 ``addmm``, ``bmm``) and kernel A's (the flash forward op) and recomputes
 only the elementwise work between them.
 
-Not ported yet: weight sharding (fsdp, tp, expert parallelism) and the
-pipeline.
+Not ported yet: expert parallelism and the pipeline.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Callable, Dict, Optional, Tuple
+import logging
+from typing import Any, Callable, Dict, Iterator, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -48,18 +73,32 @@ from torch.utils.checkpoint import (
 )
 
 from torchft_tpu_torch.models.moe import MoEConfig, moe_ffn_stats
+from torchft_tpu_torch.ops import softmax_math
 from torchft_tpu_torch.ops.flash_attention import flash_attention, flash_fwd_op
 from torchft_tpu_torch.ops.ring_attention import (
     dense_attention,
     ring_attention,
 )
 from torchft_tpu_torch.ops.ulysses import ulysses_attention
+from torchft_tpu_torch.parallel.axis import (
+    MeshAxis,
+    copy_to_axis,
+    gather_shards,
+    reduce_from_axis,
+)
 from torchft_tpu_torch.utils.device import resolve_device
 
+logger = logging.getLogger(__name__)
 
-#: the inner mesh's axis names for the batch and the sequence
+#: the inner mesh's axis names: batch, sequence, and the two that shard
+#: weights
 DP_AXIS = "dp"
 CP_AXIS = "cp"
+FSDP_AXIS = "fsdp"
+TP_AXIS = "tp"
+#: the axes the batch rows split over, in the JAX package's order
+#: (``_batch_axes``: the row block is ``dp_index * fsdp + fsdp_index``)
+BATCH_AXES = (DP_AXIS, FSDP_AXIS)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,6 +154,133 @@ def _dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
 
 def _dots_context():
     return create_selective_checkpoint_contexts(_dots_policy)
+
+
+# ---------------------------------------------------------------------------
+# weight sharding (fsdp, tp)
+# ---------------------------------------------------------------------------
+
+#: per dim of a ``[out, in]`` matrix: column-parallel (``wq``, ``wk``,
+#: ``wv``, ``w_gate``, ``w_up``; JAX ``P(None, fsdp, tp)`` on ``[L, in,
+#: out]``) and row-parallel (``wo``, ``w_down``; JAX ``P(None, tp, fsdp)``)
+_COLUMN = (TP_AXIS, FSDP_AXIS)
+_ROW = (FSDP_AXIS, TP_AXIS)
+#: a dense block's matrices, in the order of the block's parameters
+_BLOCK_SPECS = {
+    "wq": _COLUMN, "wk": _COLUMN, "wv": _COLUMN, "wo": _ROW,
+    "w_gate": _COLUMN, "w_up": _COLUMN, "w_down": _ROW,
+}
+_warned_replicated: set = set()
+
+
+def _axis_names(mesh: Any) -> "Tuple[str, ...]":
+    """An :class:`~torchft_tpu_torch.parallel.axis.InnerMesh`'s axis names,
+    or a mesh shape's (``{"fsdp": 2, "tp": 2}``) keys."""
+    names = getattr(mesh, "axis_names", None)
+    return tuple(names) if names is not None else tuple(mesh)
+
+
+def param_specs(
+    cfg: TransformerConfig, mesh: Any = None
+) -> "Dict[str, Tuple[Optional[str], ...]]":
+    """Each parameter's partition, by name: the mesh axis each of its dims
+    is split over, or None.  The JAX package's ``param_specs`` in the
+    port's layout (matrices ``[out, in]``, one entry a layer): the tied
+    embedding ``(tp, fsdp)``, column-parallel matrices ``(tp, fsdp)``,
+    row-parallel ones ``(fsdp, tp)``, the norms whole.  With a ``mesh``
+    (an inner mesh or a mesh shape), axes it does not name are dropped,
+    and a mesh with neither ``fsdp`` nor ``tp`` is warned about once, as
+    the JAX package does (weights then stay whole on every rank)."""
+    if cfg.n_experts:
+        raise NotImplementedError(
+            "MoE under an inner mesh (moe_param_specs) is not ported yet "
+            "(ROADMAP §A 3(c))")
+    specs: "Dict[str, Tuple[Optional[str], ...]]" = {"embed": (TP_AXIS, FSDP_AXIS)}
+    for layer in range(cfg.n_layers):
+        specs[f"blocks.{layer}.attn_norm"] = (None,)
+        for name, spec in _BLOCK_SPECS.items():
+            if name == "w_gate":
+                specs[f"blocks.{layer}.mlp_norm"] = (None,)
+            specs[f"blocks.{layer}.{name}.weight"] = spec
+    specs["final_norm"] = (None,)
+    if mesh is None:
+        return specs
+    names = _axis_names(mesh)
+    if FSDP_AXIS not in names and TP_AXIS not in names and names not in _warned_replicated:
+        _warned_replicated.add(names)
+        logger.warning(
+            "mesh %s has neither the %r nor the %r axis: parameters stay "
+            "whole on every rank", names, FSDP_AXIS, TP_AXIS)
+    return {
+        n: tuple(a if a in names else None for a in spec) for n, spec in specs.items()
+    }
+
+
+def _local_block(
+    t: torch.Tensor, spec: "Tuple[Optional[str], ...]", mesh: Any
+) -> torch.Tensor:
+    """This rank's block of the whole tensor ``t`` under ``spec``."""
+    for dim, name in enumerate(spec):
+        if name is None or mesh.axis_size(name) == 1:
+            continue
+        n, size = t.shape[dim], mesh.axis_size(name)
+        if n % size:
+            raise ValueError(
+                f"dim {dim} of {tuple(t.shape)} does not split over {name}={size}")
+        t = t.narrow(dim, mesh.axis_index(name) * (n // size), n // size)
+    return t
+
+
+def shard_params(model: "Transformer", mesh: Any) -> "Transformer":
+    """Keep only this rank's block of each parameter (:func:`param_specs`
+    over the inner ``mesh``), in place; returns ``model``.  Every rank
+    starts from the same whole weights (one seed), as ``jax.device_put``
+    of one array to a ``NamedSharding`` does."""
+    cfg = model.cfg
+    if tuple(model.embed.shape) != (cfg.vocab_size, cfg.d_model):
+        raise ValueError(f"model is already sharded (embed {tuple(model.embed.shape)})")
+    specs = param_specs(cfg, mesh)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.data = _local_block(p.data, specs[name], mesh).clone()
+    return model
+
+
+def gather_params(
+    named: "Mapping[str, torch.Tensor]", cfg: TransformerConfig, mesh: Any,
+    keep: bool = True,
+) -> "Dict[str, torch.Tensor]":
+    """The inverse of :func:`shard_params`, collective: each of this rank's
+    shards in ``named`` (its parameters, or anything keyed by their names,
+    such as its gradients) made whole by gathering it over the axes its
+    :func:`param_specs` entry splits it on, leaf by leaf.  Every rank of
+    the group calls it; with ``keep=False`` a rank takes part in the
+    gathers but holds none of the whole tensors (and returns ``{}``)."""
+    specs = param_specs(cfg, mesh)
+    out = {}
+    for name, t in named.items():
+        whole = t.detach()
+        for dim, axis in enumerate(specs[name]):
+            if axis is not None and mesh.axis_size(axis) > 1:
+                (whole,) = mesh.axis(axis).all_gather([whole.contiguous()], [dim])
+        if keep:
+            out[name] = whole
+    return out
+
+
+def _axis(mesh: Any, name: str) -> MeshAxis:
+    return mesh.axis(name) if mesh is not None else MeshAxis(name, None, 0, 1)
+
+
+def _check_shards(model: "Transformer", mesh: Any) -> None:
+    cfg = model.cfg
+    want = (cfg.vocab_size // mesh.axis_size(TP_AXIS),
+            cfg.d_model // mesh.axis_size(FSDP_AXIS))
+    if tuple(model.embed.shape) != want:
+        raise ValueError(
+            f"parameters are not sharded for {mesh!r} (embed "
+            f"{tuple(model.embed.shape)}, expected {want}): call "
+            "shard_params(model, mesh)")
 
 
 # ---------------------------------------------------------------------------
@@ -174,6 +340,63 @@ def _moe_cfg(cfg: TransformerConfig) -> MoEConfig:
 MOE_LEAVES = ("router", "w_gate", "w_up", "w_down")
 
 
+def _column_input(tp: MeshAxis, h: torch.Tensor) -> torch.Tensor:
+    """The input of column-parallel matmuls, each of which casts it to the
+    compute dtype itself: with ``tp``, its f32 copy under
+    :func:`copy_to_axis`, so that the gradients of its uses add up in f32,
+    over the uses and over the axis, and are rounded once."""
+    return h if tp.size == 1 else copy_to_axis(tp, h.float())
+
+
+@contextlib.contextmanager
+def _tf32_if_exact(t: torch.Tensor) -> Iterator[None]:
+    """TF32 tensor cores for the f32 matmuls of the block when ``t`` holds
+    16-bit values on the card: a bf16 or f16 value is exact in TF32 and
+    the products accumulate in f32, so only the speed changes.  f32
+    values keep the SGEMM."""
+    flags = torch.backends.cuda.matmul
+    if t.device.type != "cuda" or t.dtype not in (torch.bfloat16, torch.float16):
+        yield
+        return
+    was, flags.allow_tf32 = flags.allow_tf32, True
+    try:
+        yield
+    finally:
+        flags.allow_tf32 = was
+
+
+class _RowProduct(torch.autograd.Function):
+    """``x @ w.T`` of compute-dtype operands as an f32 product, and its
+    gradients from an f32 output gradient that holds compute-dtype values
+    (the gradient of the rounding after the sum).  Every operand is exact
+    in TF32 on the card; the compute-dtype operands are saved, not f32
+    copies."""
+
+    @staticmethod
+    def forward(ctx, x, w):  # type: ignore[override]
+        ctx.save_for_backward(x, w)
+        with _tf32_if_exact(x):
+            return F.linear(x.float(), w.float())
+
+    @staticmethod
+    def backward(ctx, g):  # type: ignore[override]
+        x, w = ctx.saved_tensors
+        with _tf32_if_exact(x):
+            gx = g @ w.float()
+            gw = g.flatten(0, -2).T @ x.float().flatten(0, -2)
+        return gx.to(x.dtype), gw.to(w.dtype)
+
+
+def _row_output(tp: MeshAxis, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w.T`` of a row-parallel matmul, summed over ``tp`` and rounded
+    to ``x``'s dtype once, as the whole product is: each rank's partial
+    product stays f32 until the sum (ROADMAP §C 15; the JAX package rounds
+    it to the compute dtype first)."""
+    if tp.size == 1:
+        return F.linear(x, w)
+    return reduce_from_axis(tp, _RowProduct.apply(x, w)).to(x.dtype)
+
+
 class Block(nn.Module):
     """One decoder layer: attention then the FFN, both pre-norm with
     residuals; ``forward`` returns ``(x, aux)``, aux being the MoE layer's
@@ -230,32 +453,71 @@ class Block(nn.Module):
             "expected 'dense', 'flash', 'ring', 'ulysses' or 'auto'"
         )
 
+    def _weights(self, names, fsdp: MeshAxis, tp: MeshAxis) -> "Dict[str, torch.Tensor]":
+        """The matrices ``names`` whole over ``fsdp``, gathered in one
+        collective in the compute dtype (cast first: half the bytes; the
+        gradients come back summed in f32).  ``wk`` and ``wv`` stay in the
+        parameter dtype when :meth:`_kv` gathers them over ``tp`` too, so
+        that their gradients are rounded once, not after each sum."""
+        act = self.cfg.dtype
+        expand = self.cfg.n_kv_heads % tp.size != 0
+        shards = [getattr(self, n).weight for n in names]
+        dims = [_BLOCK_SPECS[n].index(FSDP_AXIS) for n in names]
+        dtypes = [None if expand and n in ("wk", "wv") else act for n in names]
+        return dict(zip(names, gather_shards(fsdp, shards, dims, dtypes)))
+
+    def _kv(self, h, wk, wv, tp: MeshAxis) -> "Tuple[torch.Tensor, torch.Tensor]":
+        """K and V ``[B, T, heads, D]`` for this rank's query heads: its own
+        KV heads when ``tp`` divides them, else (``_expand_kv_for_tp``) the
+        whole ``wk``/``wv`` gathered over ``tp`` and the KV head of each of
+        its query heads picked, so that no head is split across ranks."""
+        cfg = self.cfg
+        b, t, _ = h.shape
+        nkv, hd = cfg.n_kv_heads, cfg.head_dim
+        act = cfg.dtype
+        if nkv % tp.size == 0:
+            n = nkv // tp.size
+            return (F.linear(h.to(act), wk).reshape(b, t, n, hd),
+                    F.linear(h.to(act), wv).reshape(b, t, n, hd))
+        wk, wv = gather_shards(tp, [wk, wv], [0, 0], [act, act])
+        k = F.linear(h.to(act), wk).reshape(b, t, nkv, hd)
+        v = F.linear(h.to(act), wv).reshape(b, t, nkv, hd)
+        local = cfg.n_heads // tp.size
+        heads = torch.arange(tp.rank * local, (tp.rank + 1) * local, device=h.device)
+        pick = heads // (cfg.n_heads // nkv)
+        return k.index_select(2, pick), v.index_select(2, pick)
+
     def forward(
         self, x: torch.Tensor, positions: torch.Tensor, mesh: Any = None
     ) -> "Tuple[torch.Tensor, torch.Tensor]":
-        """``mesh`` is the inner mesh ring/Ulysses attention runs over;
-        ``x`` is then this rank's chunk and ``positions`` global."""
+        """``mesh`` is the inner mesh ring/Ulysses attention runs over and
+        the weights are sharded over; ``x`` is then this rank's rows and
+        chunk, ``positions`` global."""
         cfg = self.cfg
-        act = cfg.dtype
         b, t, _ = x.shape
-        nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        h = _rms_norm(x, self.attn_norm)
-        q = F.linear(h, self.wq.weight.to(act)).reshape(b, t, nh, hd)
-        k = F.linear(h, self.wk.weight.to(act)).reshape(b, t, nkv, hd)
-        v = F.linear(h, self.wv.weight.to(act)).reshape(b, t, nkv, hd)
+        hd = cfg.head_dim
+        fsdp, tp = _axis(mesh, FSDP_AXIS), _axis(mesh, TP_AXIS)
+        names = ("wq", "wk", "wv", "wo") if cfg.n_experts else tuple(_BLOCK_SPECS)
+        w = self._weights(names, fsdp, tp)
+        act = cfg.dtype
+        local = cfg.n_heads // tp.size
+        h = _column_input(tp, _rms_norm(x, self.attn_norm))
+        q = F.linear(h.to(act), w["wq"]).reshape(b, t, local, hd)
+        k, v = self._kv(h, w["wk"], w["wv"], tp)
         q = _rope(q, positions, cfg.rope_theta)
         k = _rope(k, positions, cfg.rope_theta)
-        attn = self._attention(q, k, v, mesh).reshape(b, t, nh * hd)
-        x = x + F.linear(attn, self.wo.weight.to(act))
+        attn = self._attention(q, k, v, mesh).reshape(b, t, local * hd)
+        x = x + _row_output(tp, attn, w["wo"])
         h = _rms_norm(x, self.mlp_norm)
         if cfg.n_experts:
             params = {n: getattr(self, n) for n in MOE_LEAVES}
             y, aux, dropped = moe_ffn_stats(h, params, self.moe_cfg)
             self.moe_stats = {"aux": aux.detach(), "dropped": dropped}
             return x + y, aux
-        gate = F.silu(F.linear(h, self.w_gate.weight.to(act)))
-        up = F.linear(h, self.w_up.weight.to(act))
-        x = x + F.linear(gate * up, self.w_down.weight.to(act))
+        h = _column_input(tp, h)
+        gate = F.silu(F.linear(h.to(act), w["w_gate"]))
+        up = F.linear(h.to(act), w["w_up"])
+        x = x + _row_output(tp, gate * up, w["w_down"])
         return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -281,10 +543,12 @@ class Transformer(nn.Module):
         self, tokens: torch.Tensor, return_aux: bool = False, mesh: Any = None
     ) -> "torch.Tensor | Tuple[torch.Tensor, torch.Tensor]":
         """``return_aux`` also returns the layers' summed MoE load-balance
-        loss (0 for a dense FFN).  With an inner ``mesh`` whose ``cp`` axis
-        is larger than 1, ``tokens`` is this rank's sequence chunk: rotary
-        positions start at ``cp_rank * T_local`` and attention runs over
-        the axis."""
+        loss (0 for a dense FFN).  With an inner ``mesh``, ``tokens`` is
+        this rank's rows and sequence chunk: rotary positions start at
+        ``cp_rank * T_local``, attention runs over the ``cp`` axis, the
+        parameters are this rank's shards (:func:`shard_params`) and, with
+        ``tp > 1``, the logits are this rank's ``V / tp`` vocabulary
+        columns."""
         cfg = self.cfg
         if cfg.remat and cfg.remat_policy not in ("full", "dots"):
             raise ValueError(
@@ -293,9 +557,18 @@ class Transformer(nn.Module):
         _check_mesh(cfg, mesh)
         kw = {"context_fn": _dots_context} if cfg.remat_policy == "dots" else {}
         b, t = tokens.shape
-        # _embed: a gather of the activation-dtype table (same values as
-        # casting the table first)
-        x = self.embed[tokens].to(cfg.dtype)
+        fsdp, tp = _axis(mesh, FSDP_AXIS), _axis(mesh, TP_AXIS)
+        table = None
+        if fsdp.size > 1 or tp.size > 1:
+            _check_shards(self, mesh)
+            # the tied table, whole over fsdp, in the compute dtype's values
+            (table,) = gather_shards(fsdp, [self.embed], [1], [cfg.dtype])
+            table = table.float()
+            x = _embed_local(table, tokens, tp).to(cfg.dtype)
+        else:
+            # _embed: a gather of the activation-dtype table (same values
+            # as casting the table first)
+            x = self.embed[tokens].to(cfg.dtype)
         offset = mesh.axis_index(CP_AXIS) * t if mesh is not None else 0
         positions = offset + torch.arange(t, device=tokens.device)
         aux_sum = torch.zeros((), dtype=torch.float32, device=tokens.device)
@@ -307,12 +580,15 @@ class Transformer(nn.Module):
             else:
                 x, aux = block(x, positions, mesh)
             aux_sum = aux_sum + aux
-        logits = self._head(x)
+        logits = self._head(x, table, tp)
         if return_aux:
             return logits, aux_sum
         return logits
 
-    def _head(self, x: torch.Tensor) -> torch.Tensor:
+    def _head(
+        self, x: torch.Tensor, table: "Optional[torch.Tensor]" = None,
+        tp: "Optional[MeshAxis]" = None,
+    ) -> torch.Tensor:
         """Final norm + tied output head with f32 logits.
 
         The JAX package multiplies in the activation dtype with f32
@@ -321,10 +597,27 @@ class Transformer(nn.Module):
         are rounded to the activation dtype and then multiplied in f32: a
         product of two bf16 values is exact in f32, so this is the same
         bf16-input, f32-accumulate product (TF32 must stay off, as it is by
-        default)."""
+        default).  Sharded, ``table`` is this rank's vocabulary rows of the
+        table (whole over fsdp, the compute dtype's values in f32) and the
+        logits are those rows' columns."""
         act = self.cfg.dtype
         x = _rms_norm(x, self.final_norm)
-        return torch.matmul(x.to(act).float(), self.embed.to(act).float().t())
+        if table is None:
+            return torch.matmul(x.to(act).float(), self.embed.to(act).float().t())
+        return torch.matmul(copy_to_axis(tp, x.to(act).float()), table.t())
+
+
+def _embed_local(table: torch.Tensor, tokens: torch.Tensor, tp: MeshAxis) -> torch.Tensor:
+    """The embedding rows of ``tokens`` from this rank's vocabulary block
+    ``table`` (zero for tokens another ``tp`` rank owns), summed over
+    ``tp``: each token's row comes from its owner, exactly."""
+    if tp.size == 1:
+        return table[tokens]
+    vl = table.shape[0]
+    idx = tokens - tp.rank * vl
+    own = (idx >= 0) & (idx < vl)
+    rows = torch.where(own[..., None], table[idx.clamp(0, vl - 1)], 0.0)
+    return reduce_from_axis(tp, rows)
 
 
 def init_params(
@@ -360,15 +653,19 @@ def init_params(
 
 
 def _check_mesh(cfg: TransformerConfig, mesh: Any) -> None:
-    """What the port runs under an inner mesh so far: ``dp`` and ``cp``
-    axes, a dense FFN, full or no remat (ROADMAP §A 3(c) for the rest)."""
+    """What the port runs under an inner mesh so far: ``dp``, ``fsdp``,
+    ``tp`` and ``cp`` axes, a dense FFN, and ``remat_policy="dots"`` only
+    without ``cp`` (ROADMAP §A 3(c) for ``pp``, ``ep`` and the rest)."""
     if mesh is None or mesh.size == 1:
         return
-    known = mesh.axis_size(DP_AXIS) * mesh.axis_size(CP_AXIS)
+    known = 1
+    for name in (DP_AXIS, FSDP_AXIS, TP_AXIS, CP_AXIS):
+        known *= mesh.axis_size(name)
     if known != mesh.size:
         raise NotImplementedError(
-            f"inner mesh {mesh!r}: only the {DP_AXIS!r} and "
-            f"{CP_AXIS!r} axes are ported (ROADMAP §A 3(c))"
+            f"inner mesh {mesh!r}: only the {DP_AXIS!r}, {FSDP_AXIS!r}, "
+            f"{TP_AXIS!r} and {CP_AXIS!r} axes are ported; the pipeline (pp) "
+            "and expert parallelism (ep) follow (ROADMAP §A 3(c))"
         )
     if cfg.n_experts:
         raise NotImplementedError(
@@ -380,6 +677,9 @@ def _check_mesh(cfg: TransformerConfig, mesh: Any) -> None:
             "remat_policy='dots' under context parallelism (ROADMAP §A 3(c)); "
             "use 'full' or remat=False"
         )
+    tp = mesh.axis_size(TP_AXIS)
+    if cfg.n_heads % tp:
+        raise ValueError(f"{cfg.n_heads} query heads do not split over {TP_AXIS}={tp}")
 
 
 def _nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -391,6 +691,36 @@ def _nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     return lse - picked
 
 
+def _nll_vocab_parallel(
+    logits: torch.Tensor, targets: torch.Tensor, tp: MeshAxis
+) -> torch.Tensor:
+    """:func:`_nll` of logits whose vocabulary is split over ``tp`` (this
+    rank's ``V / tp`` columns): the logsumexp from the max over the axis
+    and the sum of the exponentials over it, the target's logit from the
+    rank that owns it.  The same value on every rank of the axis."""
+    if tp.size == 1:
+        return _nll(logits, targets)
+    vl = logits.shape[-1]
+    (maxes,) = tp.all_gather([logits.detach().amax(-1)[None]], [0])
+    m = maxes.amax(0)
+    total = softmax_math.exp(logits - m[..., None]).sum(-1)
+    idx = targets - tp.rank * vl
+    own = (idx >= 0) & (idx < vl)
+    picked = torch.gather(logits, -1, idx.clamp(0, vl - 1)[..., None])[..., 0]
+    total, picked = reduce_from_axis(tp, torch.stack([total, torch.where(own, picked, 0.0)]))
+    return m + softmax_math.log(total) - picked
+
+
+def _row_block(mesh: Any) -> "Tuple[int, int]":
+    """``(index, count)`` of this rank's block of batch rows: the rows
+    split over ``dp`` then ``fsdp`` (:data:`BATCH_AXES`)."""
+    index, count = 0, 1
+    for name in BATCH_AXES:
+        index = index * mesh.axis_size(name) + mesh.axis_index(name)
+        count *= mesh.axis_size(name)
+    return index, count
+
+
 def loss_fn(
     model: Transformer, tokens: torch.Tensor, mesh: Any = None
 ) -> torch.Tensor:
@@ -399,10 +729,11 @@ def loss_fn(
 
     With an inner ``mesh``, ``tokens`` is the replica group's whole
     ``[B, T]`` array and the result is this rank's share: its rows
-    (``dp``) and chunk (``cp``), whose targets run one position into the
-    next chunk (only the last ``cp`` rank drops the final position),
-    summed and divided by the global count ``B * (T - 1)``.  The shares
-    over the mesh sum to the loss."""
+    (``dp`` x ``fsdp``) and chunk (``cp``), whose targets run one position
+    into the next chunk (only the last ``cp`` rank drops the final
+    position), summed and divided by the global count ``B * (T - 1)``.
+    The ``tp`` ranks of a row block and chunk hold the same share; the
+    shares over the other axes sum to the loss."""
     _check_mesh(model.cfg, mesh)
     if mesh is None or mesh.size == 1:
         logits, aux = model(tokens, return_aux=True, mesh=mesh)
@@ -410,19 +741,23 @@ def loss_fn(
         if model.cfg.n_experts:
             loss = loss + model.cfg.moe_aux_weight * aux
         return loss
-    cfg = model.cfg
+    if mesh.axis_size(FSDP_AXIS) > 1 or mesh.axis_size(TP_AXIS) > 1:
+        _check_shards(model, mesh)
     b, t = tokens.shape
-    dp, cp = mesh.axis_size(DP_AXIS), mesh.axis_size(CP_AXIS)
-    if b % dp or t % cp:
-        raise ValueError(f"tokens {tuple(tokens.shape)} do not split over dp={dp}, cp={cp}")
-    bl, tl = b // dp, t // cp
-    first = mesh.axis_index(DP_AXIS) * bl
-    rows = tokens[first:first + bl]
+    block, blocks = _row_block(mesh)
+    cp = mesh.axis_size(CP_AXIS)
+    if b % blocks or t % cp:
+        raise ValueError(
+            f"tokens {tuple(tokens.shape)} do not split over "
+            f"{'x'.join(BATCH_AXES)}={blocks} rows, {CP_AXIS}={cp}")
+    bl, tl = b // blocks, t // cp
+    rows = tokens[block * bl:(block + 1) * bl]
     start = mesh.axis_index(CP_AXIS) * tl
     chunk = rows[:, start:start + tl]
     targets = rows[:, start + 1:start + tl + 1]
     logits = model(chunk, mesh=mesh)
-    return _nll(logits[:, :targets.shape[1]], targets).sum() / (b * (t - 1))
+    nll = _nll_vocab_parallel(logits[:, :targets.shape[1]], targets, mesh.axis(TP_AXIS))
+    return nll.sum() / (b * (t - 1))
 
 
 def make_grad_step(
@@ -433,8 +768,13 @@ def make_grad_step(
     optimizer steps.  ``grads`` maps parameter names to gradients.
 
     With an inner ``mesh`` (see :func:`loss_fn`), every rank of the group
-    returns the global loss and the gradients summed over the mesh's axes,
-    the same bits on every rank."""
+    returns the global loss and the gradients of its own parameters (its
+    shards), each summed over the batch axes that do not split it, as its
+    :func:`param_specs` entry says: ``dp`` and ``cp`` always, ``fsdp`` for
+    the whole leaves (the norms; the shards' sum over ``fsdp`` is the
+    weight gather's reduce-scatter), ``tp`` never (the column-parallel
+    inputs' gradients are summed over it already).  Ranks holding the same
+    block of a leaf get the same bits."""
 
     def step(
         model: Transformer, tokens: torch.Tensor
@@ -451,19 +791,32 @@ def make_grad_step(
             n: p.grad if p.grad is not None else torch.zeros_like(p)
             for n, p in model.named_parameters()
         }
-        mesh.psum_(list(grads.values()))
-        return mesh.psum(loss), grads
+        specs = param_specs(cfg, mesh)
+        loss = loss.detach().clone()
+        for axis in mesh.axes.values():
+            if axis.size == 1 or axis.name == TP_AXIS:
+                continue
+            axis.psum_([g for n, g in grads.items() if axis.name not in specs[n]] + [loss])
+        return loss, grads
 
     return step
 
 
 __all__ = [
+    "BATCH_AXES",
+    "CP_AXIS",
+    "DP_AXIS",
+    "FSDP_AXIS",
     "MOE_LEAVES",
+    "TP_AXIS",
     "Block",
     "Transformer",
     "TransformerConfig",
+    "gather_params",
     "init_params",
     "loss_fn",
     "make_grad_step",
+    "param_specs",
     "resolve_device",
+    "shard_params",
 ]

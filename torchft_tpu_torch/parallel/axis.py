@@ -23,9 +23,16 @@ recv and all-to-all take CPU tensors, so a CUDA tensor is copied through a
 pinned host buffer and back.  That is a transport choice, not a kernel
 fallback: the attention tiles still run on the card.  Each axis logs once
 which path it takes.  Data-moving ops (:meth:`MeshAxis.shift`,
-:meth:`MeshAxis.all_to_all`) move raw bytes, so a bf16 tensor crosses as its
-16-bit pattern; :meth:`MeshAxis.psum_` sums in f32 (f64 stays f64) and
-rounds back.  There is no fallback: a failed exchange raises.
+:meth:`MeshAxis.all_to_all`, :meth:`MeshAxis.all_gather`) move raw bytes, so
+a bf16 tensor crosses as its 16-bit pattern; :meth:`MeshAxis.psum_` and
+:meth:`MeshAxis.reduce_scatter` sum in f32 (f64 stays f64) and round back.
+There is no fallback: a failed exchange raises.
+
+Weight sharding (fsdp, tp) is written by hand over these ops, as the JAX
+package's GSPMD places them: :func:`gather_shards` (all-gather forward,
+reduce-scatter backward) gathers an fsdp-sharded weight, and
+:func:`copy_to_axis` / :func:`reduce_from_axis` (identity one way, psum the
+other) surround a tensor-parallel matmul pair.
 """
 
 from __future__ import annotations
@@ -33,7 +40,7 @@ from __future__ import annotations
 import collections
 import logging
 import time
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -66,8 +73,9 @@ class MeshAxis:
     """One axis of the inner mesh: ``name``, its c10d ``group`` (None for
     an axis of size 1), this rank's ``rank`` on it and its ``size``.
 
-    ``stats`` counts, per op (``shift``, ``all_to_all``, ``psum``), the
-    bytes this rank sent and the seconds the op held the caller; on the
+    ``stats`` counts, per op (``shift``, ``all_to_all``, ``psum``,
+    ``all_gather``, ``reduce_scatter``), the bytes this rank sent and the
+    seconds the op held the caller; on the
     gloo path a CUDA tensor's staging copies are included (the queued
     compute that produced it is waited for before the clock starts)."""
 
@@ -243,6 +251,87 @@ class MeshAxis:
         return flat.numel() * flat.element_size()
 
 
+    def all_gather(
+        self, tensors: "Sequence[torch.Tensor]", dims: "Sequence[int]"
+    ) -> "List[torch.Tensor]":
+        """``jax.lax.all_gather(x, axis, tiled=True)`` of each tensor along
+        its own ``dims[i]``: the ranks' blocks concatenated in rank order.
+        Every tensor goes in one collective, as raw bytes.  Not
+        differentiable (see :func:`gather_shards`)."""
+        tensors, dims = list(tensors), list(dims)
+        if self.size == 1 or not tensors:
+            return tensors
+        staged = self._staged(tensors[0])
+        t0 = self._start(staged)
+        parts = [_as_bytes(t) for t in tensors]
+        send = torch.cat(parts) if len(parts) > 1 else parts[0]
+        if staged:
+            send = self._to_host(send)
+            torch.cuda.current_stream().synchronize()
+        recvs = [self._empty_like(send, staged) for _ in range(self.size)]
+        self.group.allgather([recvs], [send]).wait()
+        if staged:
+            recvs = [r.to(tensors[0].device, non_blocking=True) for r in recvs]
+        out = []
+        off = 0
+        for t, d, p in zip(tensors, dims, parts):
+            blocks = [r[off:off + p.numel()].view(t.dtype).reshape(t.shape) for r in recvs]
+            out.append(torch.cat(blocks, dim=d))
+            off += p.numel()
+        self._stop("all_gather", t0, (self.size - 1) * send.numel(), staged)
+        return out
+
+    def reduce_scatter(
+        self, tensors: "Sequence[torch.Tensor]", dims: "Sequence[int]"
+    ) -> "List[torch.Tensor]":
+        """``jax.lax.psum_scatter(x, axis, scatter_dimension=d,
+        tiled=True)`` of each tensor along its own ``dims[i]``: this rank
+        gets block ``rank`` of the sum over the axis.  The blocks are
+        summed in f32 (f64 stays f64) in rank order, so every rank's sum
+        takes the same order, and rounded back to each tensor's type.
+        Every tensor goes in one all-to-all.  Not differentiable (see
+        :func:`gather_shards`)."""
+        tensors, dims = list(tensors), list(dims)
+        if self.size == 1 or not tensors:
+            return tensors
+        for t, d in zip(tensors, dims):
+            if not t.is_floating_point():
+                raise TypeError(f"reduce_scatter takes floating-point tensors, got {t.dtype}")
+            if t.shape[d] % self.size:
+                raise ValueError(
+                    f"reduce_scatter: dim {d} of {tuple(t.shape)} does not "
+                    f"split over {self.size} ranks")
+        acc = torch.float64 if any(t.dtype == torch.float64 for t in tensors) else torch.float32
+        staged = self._staged(tensors[0])
+        t0 = self._start(staged)
+        # row j: every tensor's block j, flattened, in the accumulation type
+        send = torch.cat([
+            torch.stack([b.reshape(-1) for b in t.to(acc).chunk(self.size, dim=d)])
+            for t, d in zip(tensors, dims)
+        ], dim=1)
+        if staged:
+            send = self._to_host(send)
+            torch.cuda.current_stream().synchronize()
+        recv = self._empty_like(send, staged)
+        self.group.alltoall_base(recv, send, [], []).wait()
+        total = recv[0].clone()
+        for i in range(1, self.size):
+            total += recv[i]
+        if staged:
+            total = total.to(tensors[0].device, non_blocking=True)
+        out = []
+        off = 0
+        for t, d in zip(tensors, dims):
+            shape = list(t.shape)
+            shape[d] //= self.size
+            n = t.numel() // self.size
+            out.append(total[off:off + n].reshape(shape).to(t.dtype))
+            off += n
+        self._stop("reduce_scatter", t0, (self.size - 1) * send[0].numel() * send.element_size(),
+                   staged)
+        return out
+
+
 # ---------------------------------------------------------------------------
 # differentiable forms (the transposes jax.lax gives ppermute and all_to_all)
 # ---------------------------------------------------------------------------
@@ -282,6 +371,81 @@ def all_to_all(
     """:meth:`MeshAxis.all_to_all_raw` under autograd: the gradient takes
     the inverse all-to-all."""
     return _AllToAll.apply(axis, x, split_dim, concat_dim)
+
+
+class _GatherShards(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, axis: MeshAxis, dims, dtypes, *shards):  # type: ignore[override]
+        ctx.axis, ctx.dims = axis, dims
+        ctx.dtypes = [s.dtype for s in shards]
+        return tuple(axis.all_gather(_cast(shards, dtypes), dims))
+
+    @staticmethod
+    def backward(ctx, *grads):  # type: ignore[override]
+        # in each shard's own type: a bf16 gather of f32 shards sums its
+        # gradient in f32 and hands it back unrounded
+        grads = [g.contiguous().to(d) for g, d in zip(grads, ctx.dtypes)]
+        return (None, None, None, *ctx.axis.reduce_scatter(grads, ctx.dims))
+
+
+def _cast(shards, dtypes) -> "List[torch.Tensor]":
+    return [s if d is None else s.to(d) for s, d in zip(shards, dtypes)]
+
+
+def gather_shards(
+    axis: MeshAxis, shards: "Sequence[torch.Tensor]", dims: "Sequence[int]",
+    dtypes: "Sequence[Optional[torch.dtype]]",
+) -> "Tuple[torch.Tensor, ...]":
+    """The FSDP weight gather: :meth:`MeshAxis.all_gather` of each shard
+    along its ``dims[i]`` in one collective, each first cast to
+    ``dtypes[i]`` (None: as it is; a cast is elementwise, so casting before
+    the gather is exact and moves fewer bytes).  The gradient of each whole
+    tensor is reduce-scattered back (summed over the axis, in f32) to the
+    shard's shape and type.  On an axis of size 1 only the casts apply."""
+    if axis.size == 1:
+        return tuple(_cast(shards, dtypes))
+    return _GatherShards.apply(axis, tuple(dims), tuple(dtypes), *shards)
+
+
+class _CopyToAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, axis: MeshAxis, x):  # type: ignore[override]
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):  # type: ignore[override]
+        g = g.contiguous().clone()
+        ctx.axis.psum_([g])
+        return None, g
+
+
+def copy_to_axis(axis: MeshAxis, x: torch.Tensor) -> torch.Tensor:
+    """Identity forward, psum over ``axis`` backward: the input of a
+    column-parallel matmul, whose ranks each give part of its gradient."""
+    if axis.size == 1:
+        return x
+    return _CopyToAxis.apply(axis, x)
+
+
+class _ReduceFromAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, axis: MeshAxis, x):  # type: ignore[override]
+        out = x.contiguous().clone()
+        axis.psum_([out])
+        return out
+
+    @staticmethod
+    def backward(ctx, g):  # type: ignore[override]
+        return None, g
+
+
+def reduce_from_axis(axis: MeshAxis, x: torch.Tensor) -> torch.Tensor:
+    """psum over ``axis`` forward, identity backward: the output of a
+    row-parallel matmul, each rank holding a partial sum."""
+    if axis.size == 1:
+        return x
+    return _ReduceFromAxis.apply(axis, x)
 
 
 # ---------------------------------------------------------------------------
@@ -350,4 +514,12 @@ class InnerMesh:
         return f"InnerMesh({inner}; on {self.device})"
 
 
-__all__ = ["InnerMesh", "MeshAxis", "all_to_all", "shift"]
+__all__ = [
+    "InnerMesh",
+    "MeshAxis",
+    "all_to_all",
+    "copy_to_axis",
+    "gather_shards",
+    "reduce_from_axis",
+    "shift",
+]

@@ -10,9 +10,11 @@ values used for loss scaling and data sharding, and the FT allreduce runs
 between the groups' same-rank members (``Manager`` with ``group_rank`` =
 this rank).
 
-Inner axes ``dp`` and ``cp`` are supported: both keep the weights whole on
-every rank (the gradients are summed over them).  ``fsdp``, ``tp``, ``pp``
-and ``ep`` shard weights or layers and are not ported yet (ROADMAP §A 3(c)).
+Inner axes ``dp``, ``fsdp``, ``tp`` and ``cp`` are supported: ``dp`` and
+``cp`` keep the weights whole on every rank (the gradients are summed over
+them), ``fsdp`` and ``tp`` shard them (``models/transformer.py``
+``param_specs``; HSDP is the FT dimension over such groups).  ``pp`` and
+``ep`` shard layers or experts and are not ported yet (ROADMAP §A 3(c)).
 """
 
 from __future__ import annotations
@@ -25,8 +27,9 @@ from torchft_tpu_torch.parallel.axis import InnerMesh, MeshAxis
 from torchft_tpu_torch.parallel.multihost import GroupWorld
 from torchft_tpu_torch.utils.device import resolve_device
 
-#: inner axes that replicate the weights (and so need no sharding here)
-SUPPORTED_AXES = ("dp", "cp")
+#: the inner axes the port builds: batch (dp), weight sharding (fsdp, tp)
+#: and sequence (cp)
+SUPPORTED_AXES = ("dp", "fsdp", "tp", "cp")
 
 
 class ManagedDeviceMesh:
@@ -183,7 +186,8 @@ def ft_init_device_mesh(
     """Build the inner mesh over this replica group's ranks and wrap it
     with the FT dim.
 
-    ``mesh_shape`` maps inner axis names to sizes (``{"cp": 2}``); their
+    ``mesh_shape`` maps inner axis names to sizes (``{"fsdp": 2, "tp":
+    2}``); their
     product must equal the group's rank count (``groups.size``; one rank
     with no ``groups``).  Ranks lie row-major over the axes; every rank of
     the group calls this, and each builds one process group per axis of
@@ -200,8 +204,8 @@ def ft_init_device_mesh(
     for name, n in mesh_shape.items():
         if n > 1 and name not in SUPPORTED_AXES:
             raise NotImplementedError(
-                f"inner axis {name!r} (size {n}) shards weights or layers; the "
-                f"port supports {SUPPORTED_AXES} so far (ROADMAP §A 3(c))"
+                f"inner axis {name!r} (size {n}) is not ported yet; the port "
+                f"supports {SUPPORTED_AXES} so far (ROADMAP §A 3(c))"
             )
     coords = np.unravel_index(world.rank, shape) if shape else ()
     axes = []
