@@ -155,6 +155,38 @@ Phases, any failure exits non-zero:
     phase, bytes by axis, each rank's heal and device and host memory per
     process.
 
+    Phase 10 also runs, at step 0 on group 0, the ring step under full
+    remat and under ``remat_policy="dots"`` (which keeps the ring's
+    exchanges' outputs): dots must match full remat within phase 10's
+    bounds and send, in-group, exactly the bytes of the step without
+    remat; its kernel A launches are logged.
+
+12. Pipeline and expert parallelism: two replica groups of four processes
+    each (8 on the card), spawned as in phase 11, each with its own
+    Manager, an inner mesh ``{"pp": 2, "ep": 2}`` over gloo with pinned
+    host staging, and the MoE model of phase 9 (the flagship's widths, 8
+    experts of d_ff 4096, top-2, capacity factor 1.25, aux weight 0.01;
+    depth cut to 4 layers, full remat): each rank holds its stage's two
+    blocks and four of each block's experts, the blocks run as a GPipe
+    schedule of 4 microbatches (the pp hops are the non-cyclic ppermute),
+    attention ``auto`` (kernels A, B and C on each stage's rows), each
+    microbatch routed over both ep ranks' tokens with the global capacity
+    and slot offsets, the expert buffers reduce-scattered to their experts'
+    ep ranks and all-gathered back; B = 8, T = 1024, AdamW, six committed
+    steps.  At step 0 group 0's rank 0 also runs the one-device flash model
+    and the f32 model with plain dense attention on the whole weights, each
+    microbatch on its own (the pipeline's routing); the routings near a tie
+    must be few (``PP_TIE_SHARE``), the pp x ep loss and gathered gradients
+    must hold phase 10's bounds, and two planted faults (the backward
+    dropping a microbatch's gradient, ep ranks routing locally) must fail
+    them.  Group 1's four processes are SIGKILLed after their second commit
+    and restarted; each heals from the same rank of group 0, and rank r of
+    both groups must end bitwise equal.  Every process must launch A, B and
+    C in its own training steps.  Prints the step split into compute, pp
+    hops, ep dispatch and return, in-group sums and the FT ring phase, the
+    GPipe bubble beside the share of a stage's time in hops, bytes by axis,
+    heals, and device and host memory per process.
+
 The last two lines are the kernels' JSON record and the device JSON.
 """
 
@@ -2328,6 +2360,40 @@ def _cp_step0_refs(model, cfg, mesh, tokens, rank: int) -> "tuple":
     return refs, controls
 
 
+def _cp_dots_check(model, cfg, mesh, tokens) -> dict:
+    """Phase 10's ``remat_policy="dots"`` step, collective on group 0 at
+    step 0: the ring step under full remat, then under dots, on the same
+    weights and tokens.  Dots must match full remat within phase 10's
+    bounds (``CP_LOSS_RTOL``, ``CP_GRAD_TOL``); returns the readings, each
+    step's in-group exchange bytes (``MeshAxis.stats``) and kernel A's
+    launches, and ``failed``."""
+    import dataclasses
+
+    from torchft_tpu_torch.models import transformer as tf
+    from torchft_tpu_torch.ops import flash_attention as fa
+
+    out, runs = {}, {}
+    for policy in ("full", "dots"):
+        step_cfg = dataclasses.replace(cfg, remat=True, remat_policy=policy)
+        use_config(model, step_cfg)
+        stats0, a0 = mesh.stats(), fa.flash_fwd.launches
+        runs[policy] = tf.make_grad_step(step_cfg, mesh)(model, tokens)
+        stats = mesh.stats()
+        out[f"{policy}_exchange_bytes"] = int(stats.get("shift_bytes", 0)
+                                              - stats0.get("shift_bytes", 0))
+        out[f"{policy}_flash_fwd_launches"] = fa.flash_fwd.launches - a0
+    use_config(model, cfg)
+    (loss_f, g_f), (loss_d, g_d) = runs["full"], runs["dots"]
+    out["loss_rel_err"] = abs(float(loss_d) - float(loss_f)) / abs(float(loss_f))
+    out["dots_to_full"] = _worst(grad_errors(g_d, g_f))
+    out["bitwise"] = bool(float(loss_d) == float(loss_f) and all(
+        g_d[n].equal(g_f[n]) for n in g_f))
+    limits = {"loss_rel_err": (out["loss_rel_err"], CP_LOSS_RTOL),
+              "dots_to_full": (out["dots_to_full"]["err"], CP_GRAD_TOL)}
+    out["failed"] = [n for n, (x, lim) in limits.items() if not x <= lim]
+    return out
+
+
 def _worst(e: dict) -> dict:
     name = max(e, key=e.get)
     return {"leaf": name, "err": e[name]}
@@ -2458,6 +2524,9 @@ def _cp_rank(gid: int, rank: int, cfg, batch: int, seq: int, device: str,
             if gid == 0 and step == 0:
                 t_c = time.perf_counter()
                 before = raw()
+                dots = _cp_dots_check(model, cfg, mesh, tokens)
+                log(f"  {tag} step-0 remat dots against full: {json.dumps(dots)}")
+                assert not dots["failed"], dots
                 refs, controls = _cp_step0_refs(model, cfg, mesh, tokens, rank)
                 sync()
                 after = raw()
@@ -2470,9 +2539,15 @@ def _cp_rank(gid: int, rank: int, cfg, batch: int, seq: int, device: str,
             sync()
             t2 = time.perf_counter()
             stats = {k: v - stats0.get(k, 0) for k, v in mesh.stats().items()}
+            if gid == 0 and step == 0:
+                # dots keeps the exchanges' outputs: its recompute moves
+                # nothing, so it sends what this step (no remat) sends
+                assert dots["dots_exchange_bytes"] == stats.get("shift_bytes", 0), (
+                    dots, stats)
             if "f32" in refs:
                 checks = cp_accuracy((loss, grads), refs)
                 checks["controls"] = controls
+                checks["remat_dots"] = dots
                 log(f"  {tag} step-0 checks: {json.dumps(checks)}")
                 assert not checks["failed"], checks
                 for kind, c in controls.items():
@@ -2662,6 +2737,13 @@ def log_cp(card: str, csum: dict) -> None:
     log(f"{card} | cp path in-group bytes sent per rank per step: ring exchange "
         f"{csum['exchange_bytes_per_step']} B, gradient sum {csum['psum_bytes_per_step']} B")
     log(f"{card} | cp path step-0 checks (group 0, rank 0): " + json.dumps(csum["checks"]))
+    dots = csum["checks"]["remat_dots"]
+    log(f"{card} | cp path remat dots step against full remat (group 0, rank 0): loss "
+        f"{dots['loss_rel_err']:.3g} relative, worst leaf {json.dumps(dots['dots_to_full'])}, "
+        f"bitwise {dots['bitwise']}; ring exchange bytes dots {dots['dots_exchange_bytes']}, "
+        f"full {dots['full_exchange_bytes']}, a step without remat "
+        f"{csum['exchange_bytes_per_step']}; kernel A launches dots "
+        f"{dots['dots_flash_fwd_launches']}, full {dots['full_flash_fwd_launches']}")
     log(f"{card} | cp path peak device memory per process (GB allocated "
         f"{json.dumps(csum['peak_memory_gb'])}, reserved "
         f"{json.dumps(csum['peak_reserved_gb'])}); host memory start/end GB "
@@ -2959,24 +3041,21 @@ def hsdp_worker(gid: int, rank: int, life: int, args: tuple, park, results) -> N
         raise
 
 
-def hsdp_path(cfg=None, batch: int = 8, seq: int = 1024, device: str = "cuda",
-              timeout: float = 900.0) -> "dict":
-    """Phase 11: two replica groups of ``HSDP_INNER`` processes each (8 on
-    one card), spawned as in phase 10, train the flagship with its weights
-    sharded over fsdp x tp; group 1's processes are SIGKILLed after their
-    ``HSDP_KILL_AFTER``-th commit and restarted, and each heals from the
-    same rank of group 0 at the survivors' step.  Any child's failure or
-    non-zero exit fails the phase; children still running at the end are
-    killed.  ``cfg``/``batch``/``seq``/``device`` let a CPU rehearsal drive
-    the same code at a tiny size."""
-    import dataclasses
+def killed_group_run(phase: str, worker, size: int, kill_after: int, args: tuple,
+                     timeout: float) -> "tuple":
+    """Phases 11 and 12's orchestration: two replica groups of ``size``
+    processes each, spawned on the card (``worker(gid, rank, life, args +
+    (lighthouse, store, coordinator), park, results)``), a lighthouse and a
+    store a group here.  Group 1's processes park after their
+    ``kill_after``-th commit; once all have reported, they are SIGKILLed and
+    restarted (``life`` 1) with a fresh coordinator.  Any child's failure
+    or non-zero exit raises; children still running at the end are killed.
+    Returns ``(results by (gid, rank), parked reports by rank, seconds into
+    the phase of the kill, wall seconds)``."""
     import multiprocessing as mp
 
     from torchft_tpu_torch.coordination import LighthouseServer, StoreServer
 
-    if cfg is None:
-        cfg = dataclasses.replace(flagship_config(), remat=True, remat_policy="full")
-    size = math.prod(HSDP_INNER.values())
     ctx = mp.get_context("spawn")
     lighthouse = LighthouseServer(
         min_replicas=2, join_timeout_ms=100, heartbeat_timeout_ms=5000
@@ -2992,12 +3071,10 @@ def hsdp_path(cfg=None, batch: int = 8, seq: int = 1024, device: str = "cuda",
     def spawn(gid: int, life: int) -> None:
         coordinator = f"127.0.0.1:{_free_port()}"
         for rank in range(size):
-            args = (cfg, batch, seq, device, lighthouse.address(),
-                    stores[gid].address(), coordinator)
+            full = args + (lighthouse.address(), stores[gid].address(), coordinator)
             recv, send = ctx.Pipe(duplex=False)
-            p = ctx.Process(target=hsdp_worker,
-                            args=(gid, rank, life, args, send, results),
-                            name=f"hsdp_g{gid}r{rank}_life{life}", daemon=True)
+            p = ctx.Process(target=worker, args=(gid, rank, life, full, send, results),
+                            name=f"{phase}_g{gid}r{rank}_life{life}", daemon=True)
             p.start()
             send.close()
             procs[(gid, rank, life)] = p
@@ -3019,8 +3096,8 @@ def hsdp_path(cfg=None, batch: int = 8, seq: int = 1024, device: str = "cuda",
                     for r in range(size):
                         procs[(1, r, 0)].join(30)
                     killed_at = time.perf_counter() - t_start
-                    log(f"hsdp path: group 1's {size} processes SIGKILLed after commit "
-                        f"{HSDP_KILL_AFTER} ({killed_at:.1f} s into the phase); restarting")
+                    log(f"{phase} path: group 1's {size} processes SIGKILLed after commit "
+                        f"{kill_after} ({killed_at:.1f} s into the phase); restarting")
                     spawn(1, 1)
             try:
                 status, gid, rank, body = results.get(timeout=0.5)
@@ -3031,18 +3108,18 @@ def hsdp_path(cfg=None, batch: int = 8, seq: int = 1024, device: str = "cuda",
                         and not (k[0] == 1 and k[2] == 0 and killed_at is not None)]
                 if dead or time.monotonic() > deadline:
                     raise RuntimeError(
-                        f"phase 11: processes {dead} died without a result"
-                        if dead else f"phase 11: no result within {timeout} s")
+                        f"{phase} path: processes {dead} died without a result"
+                        if dead else f"{phase} path: no result within {timeout} s")
                 continue
             if status == "error":
-                raise RuntimeError(f"phase 11 process g{gid}r{rank} failed:\n{body}")
+                raise RuntimeError(f"{phase} path process g{gid}r{rank} failed:\n{body}")
             out[(gid, rank)] = body
         for k, p in procs.items():
             if k[0] == 1 and k[2] == 0:
                 continue
             p.join(max(1.0, deadline - time.monotonic()))
             if p.exitcode != 0:
-                raise RuntimeError(f"phase 11 process {p.name} exited with {p.exitcode}")
+                raise RuntimeError(f"{phase} path process {p.name} exited with {p.exitcode}")
     finally:
         if alloc_env is None:
             os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
@@ -3057,7 +3134,25 @@ def hsdp_path(cfg=None, batch: int = 8, seq: int = 1024, device: str = "cuda",
         lighthouse.shutdown()
         for s in stores:
             s.shutdown()
-    wall = time.perf_counter() - t_start
+    return out, parked, killed_at, time.perf_counter() - t_start
+
+
+def hsdp_path(cfg=None, batch: int = 8, seq: int = 1024, device: str = "cuda",
+              timeout: float = 900.0) -> "dict":
+    """Phase 11: two replica groups of ``HSDP_INNER`` processes each (8 on
+    one card), spawned as in phase 10, train the flagship with its weights
+    sharded over fsdp x tp; group 1's processes are SIGKILLed after their
+    ``HSDP_KILL_AFTER``-th commit and restarted, and each heals from the
+    same rank of group 0 at the survivors' step (:func:`killed_group_run`).
+    ``cfg``/``batch``/``seq``/``device`` let a CPU rehearsal drive the same
+    code at a tiny size."""
+    import dataclasses
+
+    if cfg is None:
+        cfg = dataclasses.replace(flagship_config(), remat=True, remat_policy="full")
+    size = math.prod(HSDP_INNER.values())
+    out, parked, killed_at, wall = killed_group_run(
+        "hsdp", hsdp_worker, size, HSDP_KILL_AFTER, (cfg, batch, seq, device), timeout)
 
     def tag(r):
         return f"g{r['group']}r{r['rank']}"
@@ -3144,6 +3239,511 @@ def log_hsdp(card: str, hsum: dict) -> None:
         f"{json.dumps(hsum['launches'])} (by process "
         f"{json.dumps(hsum['launches_by_process'])}); kept apart, the step-0 "
         f"references' and planted controls' {json.dumps(hsum['aside_launches'])}")
+
+
+# ---------------------------------------------------------------------------
+# phase 12: pipeline and expert parallelism inside multi-process replica
+# groups (the MoE model under pp x ep), with a group killed and healed
+# ---------------------------------------------------------------------------
+
+#: phase 12's inner mesh, its training steps, the commit after which group
+#: 1's processes are killed, and the GPipe microbatch count
+PP_INNER = {"pp": 2, "ep": 2}
+PP_STEPS = 6
+PP_KILL_AFTER = 2
+PP_MICROBATCHES = 4
+#: Phase 12's references route as the pp x ep model did: its training
+#: step at step 0 records each (layer, microbatch)'s expert choices, and
+#: the one-device bf16 model and the f32 model replay them.  A router's
+#: gradient changes wholesale where a token's choice flips, and at 8192
+#: tokens x 4 layers of random weights some choices lie within any bf16
+#: difference of a tie (on an H100 at 700 W, each model routing on its
+#: own: the router lay 0.42 of its norm from f32, 0.18 from the one-device
+#: model).
+#: Replayed, the comparison holds numerics, with phase 10's bounds
+#: (CP_LOSS_RTOL and below).  The margin is still read first: the share of
+#: the one-device model's own routings whose top-(k+1) logits lie within
+#: PP_TIE_GAP must stay under PP_TIE_SHARE, and the share of choices that
+#: differ from the replayed ones is logged.
+PP_TIE_GAP = 1e-3
+PP_TIE_SHARE = 2e-2
+#: Phase 12's planted faults, each run as an extra step at step 0 on group
+#: 0: the pipeline's backward drops microbatch 0's output gradient on the
+#: last stage; every ep rank routes its own tokens with its local capacity
+#: and no global offsets (slots collide across ranks).  Each must fail one
+#: of HSDP_GRAD_CHECKS' counterparts (PP_GRAD_CHECKS).
+PP_CONTROLS = ("microbatch_grad_dropped", "local_routing")
+PP_GRAD_CHECKS = HSDP_GRAD_CHECKS
+
+
+@contextlib.contextmanager
+def pp_planted_fault(kind: str):
+    """Plant one of ``PP_CONTROLS`` for the duration of the block."""
+    import torch
+
+    from torchft_tpu_torch.models import moe
+    from torchft_tpu_torch.parallel import pipeline
+
+    if kind == "microbatch_grad_dropped":
+        mod, attr = pipeline, "_microbatch_grad"
+        real = pipeline._microbatch_grad
+
+        def faulty(grads, like, i):
+            got = real(grads, like, i)
+            return [torch.zeros_like(g) for g in got] if i == 0 else got
+    else:
+        mod, attr = moe, "global_counts"
+        real = moe.global_counts
+
+        def faulty(local, group):
+            return local, torch.arange(local.shape[0], device=local.device)
+
+    setattr(mod, attr, faulty)
+    try:
+        yield
+    finally:
+        setattr(mod, attr, real)
+
+
+def _router_margins(forced):
+    """A spy for ``moe_ffn_stats`` that imposes the expert choices
+    ``forced(router)`` gives for the current call, and counts the tokens
+    whose own top ``k + 1`` router logits lie within ``PP_TIE_GAP`` of each
+    other, the least such gap, and the tokens whose own choices differ from
+    the imposed ones: ``(spy, counts)``, counts ``{"near", "tokens",
+    "least", "differ"}``."""
+    import torch
+
+    from torchft_tpu_torch.models import moe
+    from torchft_tpu_torch.models import transformer as tf
+
+    counts = {"near": 0, "tokens": 0, "least": float("inf"), "differ": 0}
+    real = tf.moe_ffn_stats
+
+    def spy(h, params, mcfg, *group):
+        with torch.no_grad():
+            logits = h.reshape(-1, h.shape[-1]).float() @ params["router"].float()
+            top = torch.sort(logits, dim=-1, descending=True).values[:, : mcfg.top_k + 1]
+            gap = (top[:, :-1] - top[:, 1:]).amin(dim=-1)
+            counts["near"] += int((gap < PP_TIE_GAP).sum())
+            counts["tokens"] += gap.numel()
+            counts["least"] = min(counts["least"], float(gap.min()))
+        want = forced(params["router"])
+        counts["differ"] += int((moe._top_k(logits, mcfg.top_k) != want).any(-1).sum())
+        own = moe._top_k
+        moe._top_k = lambda lg, k: want
+        try:
+            return real(h, params, mcfg, *group)
+        finally:
+            moe._top_k = own
+
+    return spy, counts
+
+
+def _record_routing(model):
+    """A spy for ``moe_ffn_stats`` that keeps each of this rank's MoE
+    blocks' expert choices, call by call: ``(spy, choices by router
+    parameter id)``.  A stage runs its microbatches in order, then recomputes
+    them in the backward, so a block's first ``M`` entries are its ``M``
+    microbatches'."""
+    import torch
+
+    from torchft_tpu_torch.models import moe
+    from torchft_tpu_torch.models import transformer as tf
+
+    choices = {id(b.router): [] for b in model.blocks}
+    real = tf.moe_ffn_stats
+
+    def spy(h, params, mcfg, *group):
+        with torch.no_grad():
+            logits = h.reshape(-1, h.shape[-1]).float() @ params["router"].float()
+            choices[id(params["router"])].append(moe._top_k(logits, mcfg.top_k))
+        return real(h, params, mcfg, *group)
+
+    return spy, choices
+
+
+def _gather_routing(model, choices: dict, mesh, keep: bool,
+                    microbatches: int = PP_MICROBATCHES):
+    """The pp x ep model's expert choices ``[L, M, mb * T, k]`` (a
+    microbatch's tokens in the group's row order), gathered from every rank
+    of the group (collective); None unless ``keep``."""
+    import torch
+
+    mine = torch.stack([torch.stack(choices[id(b.router)][:microbatches])
+                        for b in model.blocks])  # [L / pp, M, mb_local * T, k]
+    (mine,) = mesh.axis("ep").all_gather([mine.contiguous()], [2])
+    (mine,) = mesh.axis("pp").all_gather([mine.contiguous()], [0])
+    return mine if keep else None
+
+
+def _pp_step0_refs(whole: dict, cfg, tokens, device: str, routing,
+                   microbatches: int = PP_MICROBATCHES) -> "tuple":
+    """Phase 12's references on group 0's rank 0, on the whole weights and
+    the group's whole ``[B, T]`` tokens, routed as the pipeline routed:
+    each microbatch on its own, each block's experts those the pp x ep
+    model chose (``routing`` ``[L, M, mb * T, k]``).  The mean over the
+    microbatches of the one-device flash model's steps, and of the same
+    model's in f32 with plain dense attention (no kernel), both under full
+    remat.  Returns their ``(loss, grads)`` by name, and the one-device
+    model's routing margins and differing choices
+    (:func:`_router_margins`)."""
+    import dataclasses
+
+    import torch
+
+    from torchft_tpu_torch.models import transformer as tf
+
+    mb = tokens.shape[0] // microbatches
+    refs, margins = {}, None
+    for name, impl, dtype in (("f32", "dense", torch.float32),
+                              ("one_device", "flash", cfg.dtype)):
+        ref_cfg = dataclasses.replace(cfg, attn_impl=impl, dtype=dtype, remat=True,
+                                      remat_policy="full")
+        model = tf.Transformer(ref_cfg, device)
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p.copy_(whole[n])
+        layer_of = {id(b.router): l for l, b in enumerate(model.blocks)}
+        current = {"m": 0}
+        spy, counts = _router_margins(
+            lambda router: routing[layer_of[id(router)], current["m"]])
+        real, tf.moe_ffn_stats = tf.moe_ffn_stats, spy
+        try:
+            loss, grads = 0.0, {}
+            for m in range(microbatches):
+                current["m"] = m
+                l_m, g_m = tf.make_grad_step(ref_cfg)(model, tokens[m * mb:(m + 1) * mb])
+                loss = loss + l_m / microbatches
+                for n, g in g_m.items():
+                    grads[n] = grads[n] + g / microbatches if n in grads else g / microbatches
+        finally:
+            tf.moe_ffn_stats = real
+        refs[name] = (loss, grads)
+        if name == "one_device":
+            margins = dict(counts, share=counts["near"] / max(counts["tokens"], 1),
+                           differ_share=counts["differ"] / max(counts["tokens"], 1))
+        del model
+    return refs, margins
+
+
+def _pp_rank(gid: int, rank: int, life: int, cfg, batch: int, seq: int, device: str,
+             lighthouse_addr: str, store_addr: str, coordinator: str, park) -> dict:
+    """One process of phase 12: rank ``rank`` of replica group ``gid``'s
+    inner mesh ``PP_INNER`` (its stage's blocks, its experts), in its
+    ``life``-th incarnation.  Group 1's first incarnation sends its
+    launches and steps on ``park`` after its ``PP_KILL_AFTER``-th commit and
+    waits to be killed."""
+    import torch
+
+    from torchft_tpu_torch import (
+        DistributedDataParallel,
+        Manager,
+        OptimizerWrapper,
+        ProcessGroupTCP,
+        module_grads,
+    )
+    from torchft_tpu_torch.models import transformer as tf
+    from torchft_tpu_torch.ops import flash_attention as fa
+    from torchft_tpu_torch.parallel.device_mesh import ft_init_device_mesh
+    from torchft_tpu_torch.parallel.multihost import initialize_multihost
+
+    tag = f"pp g{gid}r{rank}" + (" (restarted)" if life else "")
+    on_card = device == "cuda"
+    torch.backends.cuda.matmul.allow_tf32 = False  # the f32 reference stays f32
+    if not on_card:
+        torch.set_num_threads(2)  # eight processes share the host
+    rss_start = host_rss_gb()
+    size = math.prod(PP_INNER.values())
+    world = initialize_multihost(coordinator, size, rank, backend="gloo", timeout=600.0)
+    refs_here = gid == 0 and rank == 0 and life == 0
+    # every rank draws the whole model from one seed on the host, then
+    # keeps its stage's blocks and its experts
+    model = tf.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    whole = {n: p.detach().to(device) for n, p in model.named_parameters()} if refs_here else None
+    opt = None
+
+    def sync() -> None:
+        if on_card:
+            torch.cuda.synchronize()
+
+    manager = Manager(
+        pg=ProcessGroupTCP(timeout=600.0), min_replica_size=2,
+        load_state_dict=lambda sd: (model.load_state_dict(sd["model"]),
+                                    opt.load_state_dict(sd["optim"])),
+        state_dict=lambda: {"model": model.state_dict(), "optim": opt.state_dict()},
+        lighthouse_addr=lighthouse_addr, replica_id=f"pp_group{gid}",
+        group_rank=rank, group_world_size=size, store_addr=store_addr,
+        use_async_quorum=False, timeout=600.0, quorum_timeout=600.0,
+        init_sync=False,
+    )
+    kernels = (fa.flash_fwd, fa.flash_bwd_kv, fa.flash_bwd_q)
+    # the step-0 references and planted controls launch kernels outside the
+    # training steps: counted apart, and taken off the path's own counts
+    aside = {fn.__name__: 0 for fn in kernels}
+
+    def launches() -> dict:
+        return {fn.__name__: fn.launches - aside[fn.__name__] for fn in kernels}
+
+    try:
+        mesh = ft_init_device_mesh(manager, PP_INNER, groups=world, device=device).mesh
+        transport = mesh.axis("pp").transport(device)
+        tf.shard_params(model, mesh)
+        model.to(device)
+        opt = torch.optim.AdamW(
+            model.parameters(), lr=3e-4, betas=(0.9, 0.95), eps=1e-8,
+            weight_decay=0.1,
+        )
+        grad_step = tf.make_grad_step(cfg, mesh, PP_MICROBATCHES)
+        optim = OptimizerWrapper(manager, opt)
+        ddp = DistributedDataParallel(manager)
+        axes = {name: mesh.axis(name) for name in PP_INNER}
+        records, checks, first_commit, heal = [], None, None, None
+        for fn in kernels:
+            fn.launches = 0
+        while manager.current_step() < PP_STEPS:
+            phases0 = manager.phase_times()
+            t0 = time.perf_counter()
+            optim.zero_grad()  # the quorum: a restarted rank heals here
+            t1 = time.perf_counter()
+            step = manager.current_step()
+            if life and heal is None:
+                phases = manager.phase_times()
+                info = manager.heal_info()
+                heal = {
+                    "step": step, "quorum_ms": (t1 - t0) * 1e3,
+                    "mode": info.get("mode"), "sources": info.get("sources"),
+                    "wire_bytes": info.get("wire_bytes", 0),
+                    "phases_ms": {k: (phases.get(k, 0.0) - phases0.get(k, 0.0)) * 1e3
+                                  for k in HEAL_PHASES},
+                }
+                log(f"  {tag} healed to step {step}: {json.dumps(heal)}")
+            tokens = torch.randint(
+                0, cfg.vocab_size, (batch, seq),
+                generator=torch.Generator().manual_seed(1000 * gid + step),
+            ).to(device)
+            step0 = gid == 0 and step == 0
+            if step0:  # the training step keeps its expert choices
+                spy, choices = _record_routing(model)
+                real_moe, tf.moe_ffn_stats = tf.moe_ffn_stats, spy
+            stats0 = {a: dict(ax.stats) for a, ax in axes.items()}
+            t1b = time.perf_counter()
+            try:
+                loss, grads = grad_step(model, tokens)
+            finally:
+                if step0:
+                    tf.moe_ffn_stats = real_moe
+            sync()
+            t2 = time.perf_counter()
+            stats = {a: {k: v - stats0[a].get(k, 0) for k, v in ax.stats.items()}
+                     for a, ax in axes.items()}
+            t_k = time.perf_counter()
+            if step0:
+                # the references (on the pp x ep model's routing) and the
+                # planted controls: no part of the step, their launches apart
+                before = {fn.__name__: fn.launches for fn in kernels}
+                routing = _gather_routing(model, choices, mesh, keep=refs_here)
+                refs, margins = (_pp_step0_refs(whole, cfg, tokens, device, routing)
+                                 if refs_here else (None, None))
+                whole = routing = choices = None
+                controls = {}
+                for kind in PP_CONTROLS:
+                    with pp_planted_fault(kind):
+                        faulty_loss, faulty = grad_step(model, tokens)
+                    got = tf.gather_params(faulty, cfg, mesh, keep=refs_here)
+                    if refs_here:
+                        controls[kind] = hsdp_accuracy((faulty_loss, got), refs)
+                    del faulty, got
+                got = tf.gather_params(grads, cfg, mesh, keep=refs_here)
+                if refs_here:
+                    checks = hsdp_accuracy((loss, got), refs)
+                    checks["routing_margin"] = margins
+                    checks["controls"] = controls
+                    log(f"  {tag} step-0 checks: {json.dumps(checks)}")
+                    # the precondition first: few routings near a tie
+                    assert margins["share"] <= PP_TIE_SHARE, margins
+                    assert not checks["failed"], checks
+                    for kind, c in controls.items():
+                        # the checks must catch each planted fault
+                        assert set(c["failed"]) & set(PP_GRAD_CHECKS), (kind, c)
+                del got, refs
+                sync()
+                for fn in kernels:
+                    aside[fn.__name__] += fn.launches - before[fn.__name__]
+            t_k = time.perf_counter() - t_k
+            avg = ddp.allreduce_gradients(module_grads(model)).wait(timeout=600)
+            committed = optim.step(model, avg)
+            del avg
+            sync()
+            t3 = time.perf_counter()
+            phases = manager.phase_times()
+            pp, ep = stats.get("pp", {}), stats.get("ep", {})
+            comm = {
+                "pp_hop_ms": pp.get("hop_s", 0.0) * 1e3,
+                "pp_psum_ms": pp.get("psum_s", 0.0) * 1e3,
+                "ep_dispatch_ms": (ep.get("reduce_scatter_s", 0.0)
+                                   + ep.get("all_gather_s", 0.0)) * 1e3,
+                "ep_psum_ms": ep.get("psum_s", 0.0) * 1e3,
+            }
+            fwd_bwd_ms = (t2 - t1b) * 1e3
+            records.append({
+                "group": gid, "rank": rank, "life": life, "step": step,
+                "loss": float(loss), "committed": committed,
+                "step_ms": (t3 - t0 - t_k) * 1e3, "quorum_ms": (t1 - t0) * 1e3,
+                "fwd_bwd_ms": fwd_bwd_ms,
+                "compute_ms": fwd_bwd_ms - sum(comm.values()), **comm,
+                "ring_ms": (phases.get("ring", 0.0) - phases0.get("ring", 0.0)) * 1e3,
+                "bytes": {a: {k[:-6]: int(v) for k, v in s.items() if k.endswith("_bytes")}
+                          for a, s in stats.items()},
+            })
+            log(f"  {tag} step {json.dumps(records[-1])}")
+            if committed and first_commit is None:
+                first_commit = step
+            if gid == 1 and life == 0 and manager.current_step() == PP_KILL_AFTER:
+                park.send({"launches": launches(), "steps": records})
+                while True:  # SIGKILLed here by the parent
+                    time.sleep(60.0)
+        return {
+            "group": gid, "rank": rank, "life": life, "steps": records,
+            "checks": checks, "final_step": manager.current_step(),
+            "first_commit": first_commit, "heal": heal,
+            "digests": state_digests(model, opt), "transport": transport,
+            "params": sum(p.numel() for p in model.parameters()),
+            "layers": list(tf.stage_range(cfg, mesh)),
+            "launches": launches(), "aside_launches": aside,
+            "twin_calls": {fn.__name__: fn.calls for fn in (
+                fa.flash_fwd_plain, fa.flash_bwd_kv_plain, fa.flash_bwd_q_plain)},
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9 if on_card else None,
+            "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9 if on_card else None,
+            "host_rss_start_gb": rss_start, "host_rss_end_gb": host_rss_gb(),
+        }
+    finally:
+        manager.shutdown()
+
+
+def pp_worker(gid: int, rank: int, life: int, args: tuple, park, results) -> None:
+    """The target of a phase-12 process, as :func:`hsdp_worker` is phase
+    11's."""
+    try:
+        results.put(("ok", gid, rank, _pp_rank(gid, rank, life, *args, park)))
+    except BaseException:  # noqa: BLE001 - reported to the parent, re-raised
+        results.put(("error", gid, rank, traceback.format_exc()))
+        raise
+
+
+def pp_path(cfg=None, batch: int = 8, seq: int = 1024, device: str = "cuda",
+            timeout: float = 900.0) -> "dict":
+    """Phase 12: two replica groups of ``PP_INNER`` processes each (8 on
+    one card), spawned as in phase 11, train the MoE model (:func:`moe_config`)
+    through the GPipe schedule over pp with its experts over ep; group 1's
+    processes are SIGKILLed after their ``PP_KILL_AFTER``-th commit and
+    restarted, and each heals from the same rank of group 0 at the
+    survivors' step.  ``cfg``/``batch``/``seq``/``device`` let a CPU
+    rehearsal drive the same code at a tiny size."""
+    import dataclasses
+
+    if cfg is None:
+        cfg = dataclasses.replace(moe_config(), attn_impl="auto")
+    size = math.prod(PP_INNER.values())
+    out, parked, killed_at, wall = killed_group_run(
+        "pp", pp_worker, size, PP_KILL_AFTER, (cfg, batch, seq, device), timeout)
+
+    def tag(r):
+        return f"g{r['group']}r{r['rank']}"
+
+    assert len(parked) == size and killed_at is not None, "group 1 was never killed"
+    runs = [out[k] for k in sorted(out)]
+    for r in runs:
+        assert r["final_step"] == PP_STEPS, (r["group"], r["rank"], r["final_step"])
+        assert all(s["committed"] for s in r["steps"]), (r["group"], r["rank"])
+        assert all(math.isfinite(s["loss"]) for s in r["steps"])
+    survivors = [r for r in runs if r["group"] == 0]
+    healed = [r for r in runs if r["group"] == 1]
+    assert all(r["life"] == 1 for r in healed)
+    for r in healed:
+        # the restarted rank healed live to the survivors' step, over the
+        # wire, and its first commit landed there, not at step 0
+        assert r["heal"] is not None and r["heal"]["step"] == PP_KILL_AFTER, r["heal"]
+        assert r["heal"]["wire_bytes"] > 0, r["heal"]
+        assert r["first_commit"] == PP_KILL_AFTER, r["first_commit"]
+    # rank r of each group holds the same stage and experts, and ends with
+    # the same parameters and AdamW state
+    for a, b in zip(survivors, healed):
+        assert a["layers"] == b["layers"]
+        bad = [n for n in a["digests"] if b["digests"].get(n) != a["digests"][n]]
+        assert not bad and len(a["digests"]) == len(b["digests"]), (
+            f"g1r{b['rank']} differs from g0r{a['rank']}: {bad[:5]}")
+    checks = survivors[0]["checks"]
+    assert checks is not None and all(r["checks"] is None for r in runs[1:]), "step-0 checks"
+    counted = {tag(r): r["launches"] for r in runs}
+    counted.update({f"g1r{rank}_killed": p["launches"] for rank, p in parked.items()})
+    names = runs[0]["launches"]
+    launches = {n: sum(c[n] for c in counted.values()) for n in names}
+    aside = {n: sum(r["aside_launches"][n] for r in runs) for n in names}
+    twins = {n: sum(r["twin_calls"][n] for r in runs) for n in runs[0]["twin_calls"]}
+    log(f"pp path: {PP_STEPS} steps committed in {len(runs)} processes, group 1 healed "
+        f"rank by rank at step {PP_KILL_AFTER}; rank r's parameters and AdamW state "
+        f"({len(runs[0]['digests'])} leaves) bitwise equal across the groups")
+    step_recs = [s for r in survivors for s in r["steps"] if s["step"] > 0]
+
+    def med(key):
+        return statistics.median(s[key] for s in step_recs) if step_recs else None
+
+    stages = PP_INNER["pp"]
+    return {
+        "processes": len(runs), "layers": cfg.n_layers, "inner": PP_INNER,
+        "microbatches": PP_MICROBATCHES, "batch": batch, "seq": seq,
+        "transport": runs[0]["transport"],
+        "params_per_rank": {tag(r): r["params"] for r in survivors}, "checks": checks,
+        "launches": launches, "launches_by_process": counted,
+        "aside_launches": aside, "twin_calls": twins,
+        "median_ms": {k: med(k) for k in (
+            "step_ms", "fwd_bwd_ms", "compute_ms", "pp_hop_ms", "pp_psum_ms",
+            "ep_dispatch_ms", "ep_psum_ms", "ring_ms", "quorum_ms")},
+        "bubble": (stages - 1) / (PP_MICROBATCHES + stages - 1),
+        "hop_share_of_fwd_bwd": {tag(r): statistics.median(
+            s["pp_hop_ms"] / s["fwd_bwd_ms"] for s in r["steps"] if s["step"] > 0)
+            for r in survivors},
+        "bytes_per_step": {tag(r): next((s["bytes"] for s in r["steps"] if s["step"] > 0), None)
+                           for r in survivors},
+        "heals": {tag(r): r["heal"] for r in healed},
+        "killed_at_s": killed_at,
+        "steps": [s for r in runs for s in r["steps"]],
+        "peak_memory_gb": {tag(r): r["peak_memory_gb"] for r in runs},
+        "peak_reserved_gb": {tag(r): r["peak_reserved_gb"] for r in runs},
+        "host_rss_gb": {tag(r): (r["host_rss_start_gb"], r["host_rss_end_gb"]) for r in runs},
+        "wall_s": wall,
+    }
+
+
+def log_pp(card: str, psum: dict) -> None:
+    """Phase 12's numbers, each line beside the card's name and power limit."""
+    m = psum["median_ms"]
+    log(f"{card} | pp path ({psum['processes']} processes: 2 groups x "
+        f"{json.dumps(psum['inner'])}, {psum['layers']} layers, {psum['microbatches']} "
+        f"microbatches, B={psum['batch']} T={psum['seq']}, parameters a rank "
+        f"{json.dumps(psum['params_per_rank'])}, in-group transport {psum['transport']}): "
+        f"median step {m['step_ms']:.1f} ms = compute {m['compute_ms']:.1f} + pp hops "
+        f"{m['pp_hop_ms']:.1f} + pp psum {m['pp_psum_ms']:.1f} + ep dispatch and return "
+        f"{m['ep_dispatch_ms']:.1f} + ep psum {m['ep_psum_ms']:.1f} ms (forward+backward "
+        f"{m['fwd_bwd_ms']:.1f}), quorum {m['quorum_ms']:.1f} ms, FT ring phase "
+        f"{m['ring_ms']:.1f} ms")
+    log(f"{card} | pp path GPipe bubble (S-1)/(M+S-1) = {psum['bubble']:.3f}; share of "
+        "forward+backward a stage spends in pp hops (waiting on its neighbour included) "
+        + json.dumps(psum["hop_share_of_fwd_bwd"]))
+    log(f"{card} | pp path bytes sent per rank per step, by axis and op: "
+        + json.dumps(psum["bytes_per_step"]))
+    log(f"{card} | pp path step-0 checks (group 0, rank 0): " + json.dumps(psum["checks"]))
+    log(f"{card} | pp path heals (group 1 killed {psum['killed_at_s']:.1f} s into the "
+        "phase): " + json.dumps(psum["heals"]))
+    log(f"{card} | pp path peak device memory per process (GB allocated "
+        f"{json.dumps(psum['peak_memory_gb'])}, reserved "
+        f"{json.dumps(psum['peak_reserved_gb'])}); host memory start/end GB "
+        f"{json.dumps(psum['host_rss_gb'])}; phase wall {psum['wall_s']:.1f} s")
+    log(f"{card} | pp path kernel launches in its training steps "
+        f"{json.dumps(psum['launches'])} (by process "
+        f"{json.dumps(psum['launches_by_process'])}); kept apart, the step-0 "
+        f"references' and planted controls' {json.dumps(psum['aside_launches'])}")
 
 
 def main() -> int:
@@ -3376,6 +3976,22 @@ def main() -> int:
     log_hsdp(card, hdsum)
     log(f"hsdp path on {card}: " + json.dumps(hdsum))
 
+    # phase 12's kernels launch in its child processes, as phase 11's
+    ppsum, pp_parent, pp_parent_twins = drive(pp_path)
+    pp_launches = ppsum["launches"]
+    log(f"pp path launches {pp_launches} in the training steps of its processes (the parent "
+        f"{pp_parent}); plain twin calls {ppsum['twin_calls']} (the parent "
+        f"{pp_parent_twins})")
+    assert all(pp_launches[k] > 0 for k in ("flash_fwd", "flash_bwd_kv", "flash_bwd_q")), pp_launches
+    # every process, survivors, killed and healed ranks alike, launched
+    # each kernel in its own training steps
+    assert all(n > 0 for c in ppsum["launches_by_process"].values()
+               for n in c.values()), ppsum["launches_by_process"]
+    assert all(n == 0 for n in ppsum["twin_calls"].values()), ppsum["twin_calls"]
+    assert all(n == 0 for n in pp_parent_twins.values()), pp_parent_twins
+    log_pp(card, ppsum)
+    log(f"pp path on {card}: " + json.dumps(ppsum))
+
     sources = {
         "flash_fwd": ("torchft_tpu_torch/csrc/flash_fwd.cu",
                       "torchft_tpu/ops/flash_attention.py:67"),
@@ -3394,15 +4010,15 @@ def main() -> int:
     for part in ("max_abs", "times", "bounds", "library"):
         checks[part] = {**kernels[part], **quant[part]}
     # launches: the DDP, heal, DiLoCo, cold-restore, reshard, MoE serving,
-    # cp and HSDP paths' runs together (each counted from 0; the cp and
-    # HSDP paths' in the training steps of their processes, without the
-    # step-0 references and planted faults); E and F have no caller on any
+    # cp, HSDP and pp paths' runs together (each counted from 0; the cp,
+    # HSDP and pp paths' in the training steps of their processes, without
+    # the step-0 references and planted faults); E and F have no caller on any
     record = {"kernels": [
         {
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": sum(run.get(name, 0) for run in (
                 launches, h_launches, d_launches, c_launches, r_launches,
-                m_launches, cp_launches, hd_launches)),
+                m_launches, cp_launches, hd_launches, pp_launches)),
             "max_abs_err": checks["max_abs"][name],
             "ms": checks["times"][name][0],
             "plain_ms": checks["times"][name][1],

@@ -82,6 +82,12 @@ def test_cp_path_rehearsal_on_cpu():
     # the f32 dense model to rounding
     checks = summary["checks"]
     assert checks["ring_loss_rel_err"] < 1e-5 and checks["ulysses_loss_rel_err"] < 1e-5
+    # the remat "dots" step: the values of full remat, and the ring bytes of
+    # the step without remat (full remat sends the forward's again)
+    dots = checks["remat_dots"]
+    assert dots["failed"] == [] and dots["bitwise"]
+    assert dots["dots_exchange_bytes"] == summary["exchange_bytes_per_step"]
+    assert dots["full_exchange_bytes"] > dots["dots_exchange_bytes"]
     for key in ("one_device_to_f32", "ring_to_f32", "ulysses_to_f32",
                 "ring_to_one_device", "ulysses_to_ring"):
         assert checks[key]["err"] < 1e-5, (key, checks[key])
@@ -275,3 +281,82 @@ def test_moe_serve_path_rehearsal_on_cpu():
     # eval forwards of group 0's records and the client's fetches on top
     assert fa.flash_fwd_plain.calls - before >= 2 * 6 * 2 * 2 + 2 * (6 + 3)
     assert "TORCHFT_SERVING_FAILOVER_S" not in os.environ
+
+
+#: the phases ``chip_smoke.py`` runs, in order (its docstring numbers them)
+PHASES = (
+    "Device", "Kernel check", "Main path", "Heal path", "Quantization kernels",
+    "DiLoCo path", "Cold restore", "Reshard", "MoE serving", "Context parallelism",
+    "HSDP", "Pipeline and expert parallelism",
+)
+
+
+def test_the_phase_list_and_the_pp_summary_keys_are_pinned():
+    """The script's phases 1-12 in order, ``main`` driving the twelve paths'
+    functions in that order, and the keys of phase 12's summary that
+    ``log_pp`` and ``main`` read."""
+    import inspect
+    import re
+
+    doc = chip_smoke.__doc__
+    found = [m.group(1) for m in re.finditer(r"^ ?(\d+)\. ", doc, re.M)]
+    assert found == [str(i) for i in range(1, len(PHASES) + 1)]
+    for i, name in enumerate(PHASES, 1):
+        assert re.search(rf"^ ?{i}\. {name}", doc, re.M), name
+    src = inspect.getsource(chip_smoke.main)
+    paths = re.findall(r"= drive\((\w+)\)", src)
+    assert paths == ["main_path", "heal_path", "diloco_path", "cold_restore_path",
+                     "reshard_path", "moe_serve_path", "cp_path", "hsdp_path", "pp_path"]
+    assert "pp_launches))" in src  # phase 12's launches join the kernels' record
+    assert chip_smoke.PP_INNER == {"pp": 2, "ep": 2} and chip_smoke.PP_MICROBATCHES == 4
+    assert chip_smoke.moe_config().n_layers == 4 and chip_smoke.moe_config().d_model == 1536
+
+
+def test_pp_path_rehearsal_on_cpu():
+    """Phase 12 at a tiny f32 size through the same spawn code: eight
+    processes (two groups x pp 2 x ep 2), a 2-layer 4-expert MoE model in 4
+    microbatches; group 1 is SIGKILLed after its second commit, restarted,
+    and heals rank by rank.  The path itself asserts six commits everywhere,
+    the heal at the survivors' step, the step-0 checks (f32 here: the pp x
+    ep model and the one-device model agree to rounding), both planted
+    faults caught, and rank r of both groups bitwise equal."""
+    cfg = tf.TransformerConfig(
+        vocab_size=256, d_model=64, n_heads=2, n_kv_heads=1, d_ff=128,
+        n_layers=2, max_seq_len=128, dtype=torch.float32, remat=True,
+        attn_impl="flash", n_experts=4, moe_top_k=2, moe_capacity_factor=1.25,
+    )
+    summary = chip_smoke.pp_path(cfg, batch=8, seq=128, device="cpu", timeout=150.0)
+    assert summary["processes"] == 8 and summary["bubble"] == 0.2
+    assert len(summary["steps"]) == 24 + 16
+    # a rank: its stage's block (4 of 8 expert matrices each: 2 of 4
+    # experts) beside the whole embedding and final norm
+    block = sum(p.numel() for n, p in tf.Transformer(cfg, "cpu").named_parameters()
+                if n.startswith("blocks.0."))
+    experts = 3 * 4 * 64 * 128
+    assert set(summary["params_per_rank"].values()) == {
+        block - experts // 2 + 256 * 64 + 64}
+    heals = summary["heals"]
+    assert sorted(heals) == [f"g1r{r}" for r in range(4)]
+    assert all(h["step"] == chip_smoke.PP_KILL_AFTER and h["wire_bytes"] > 0
+               for h in heals.values())
+    checks = summary["checks"]
+    assert checks["failed"] == [] and checks["loss_rel_err"] < 1e-5
+    assert checks["routing_margin"]["share"] <= chip_smoke.PP_TIE_SHARE
+    for key in ("one_device_to_f32", "sharded_to_f32", "sharded_to_one_device"):
+        assert checks[key]["err"] < 1e-5, (key, checks[key])
+    assert sorted(checks["controls"]) == sorted(chip_smoke.PP_CONTROLS)
+    for kind, c in checks["controls"].items():
+        assert set(chip_smoke.PP_GRAD_CHECKS) <= set(c["failed"]), (kind, c)
+    # every step moved bytes on both axes: the pp hops and the ep dispatch
+    for moved in summary["bytes_per_step"].values():
+        assert moved["pp"]["hop"] > 0 and moved["pp"]["psum"] > 0
+        assert moved["ep"]["reduce_scatter"] > 0 and moved["ep"]["all_gather"] > 0
+    assert set(summary["median_ms"]) == {
+        "step_ms", "fwd_bwd_ms", "compute_ms", "pp_hop_ms", "pp_psum_ms",
+        "ep_dispatch_ms", "ep_psum_ms", "ring_ms", "quorum_ms"}
+    # kernels run as their twins in the children on CPU tensors
+    assert summary["launches"] == {"flash_fwd": 0, "flash_bwd_kv": 0, "flash_bwd_q": 0}
+    assert sorted(summary["launches_by_process"]) == sorted(
+        [f"g{g}r{r}" for g in range(2) for r in range(4)]
+        + [f"g1r{r}_killed" for r in range(4)])
+    assert all(n > 0 for n in summary["twin_calls"].values())

@@ -153,11 +153,14 @@ class _FakeGroup:
 
 
 def test_what_is_not_ported_under_a_mesh_raises():
+    """Everything the JAX package composes runs under an inner mesh now
+    (pp, ep, MoE, remat "dots" under cp); what is refused is what cannot
+    run: attention that needs the whole sequence on a cp mesh, ring
+    attention without a mesh, experts or layers that do not split, and a
+    model whose weights are not sharded for its mesh."""
     cp2 = InnerMesh([MeshAxis("cp", _FakeGroup(), 0, 2)], "cpu")
     tokens = torch.zeros(1, 64, dtype=torch.long)
     for kw, err in (
-        (dict(remat=True, remat_policy="dots"), NotImplementedError),
-        (dict(n_experts=4), NotImplementedError),
         (dict(attn_impl="flash"), ValueError),
         (dict(attn_impl="dense"), ValueError),
     ):
@@ -170,12 +173,18 @@ def test_what_is_not_ported_under_a_mesh_raises():
     model = ttf.init_params(torch.Generator().manual_seed(0), tcfg, "cpu")
     with pytest.raises(ValueError, match="requires a mesh"):
         model(tokens)
-    # pp and ep under a mesh are not ported yet; fsdp is (weights sharded:
-    # an unsharded model is refused with a pointer to shard_params)
-    for axis in ("pp", "ep"):
+    # 3 experts over ep = 2, 2 layers over pp = 4
+    ep2 = InnerMesh([MeshAxis("ep", _FakeGroup(), 0, 2)], "cpu")
+    moe = ttf.init_params(torch.Generator().manual_seed(0),
+                          dataclasses.replace(tcfg, n_experts=3), "cpu")
+    with pytest.raises(ValueError, match="experts do not split"):
+        ttf.loss_fn(moe, tokens, ep2)
+    pp4 = InnerMesh([MeshAxis("pp", _FakeGroup(), 0, 4)], "cpu")
+    with pytest.raises(ValueError, match="not divisible by pp"):
+        ttf.loss_fn(model, tokens, pp4)
+    # weights sharded over fsdp, layers over pp: an unsharded model is
+    # refused with a pointer to shard_params
+    for axis in ("fsdp", "pp"):
         mesh = InnerMesh([MeshAxis(axis, _FakeGroup(), 0, 2)], "cpu")
-        with pytest.raises(NotImplementedError, match="3\\(c\\)"):
+        with pytest.raises(ValueError, match="shard_params"):
             ttf.loss_fn(model, tokens, mesh)
-    fsdp = InnerMesh([MeshAxis("fsdp", _FakeGroup(), 0, 2)], "cpu")
-    with pytest.raises(ValueError, match="shard_params"):
-        ttf.loss_fn(model, tokens, fsdp)

@@ -152,24 +152,26 @@ def test_ft_init_device_mesh_builds_row_major_axes_over_thread_ranks():
 
 
 def test_ft_init_device_mesh_refuses_what_it_cannot_build():
-    """pp and ep are not ported yet; fsdp and tp are (HSDP), and build
-    their groups like any other axis."""
+    """An axis the port does not know is refused; fsdp, tp, pp and ep
+    build their groups like any other axis."""
     worlds = multihost.local_worlds(2)
-    for axis in ("pp", "ep"):
-        with pytest.raises(NotImplementedError, match="3\\(c\\)"):
-            tdm.ft_init_device_mesh(None, {axis: 2}, groups=worlds[0], device="cpu")
+    with pytest.raises(ValueError, match="unknown inner axis 'sp'"):
+        tdm.ft_init_device_mesh(None, {"sp": 2}, groups=worlds[0], device="cpu")
     with pytest.raises(ValueError, match="needs 4 ranks"):
         tdm.ft_init_device_mesh(None, {"cp": 4}, groups=worlds[0], device="cpu")
     one = tdm.ft_init_device_mesh(None, {"dp": 1, "tp": 1}, device="cpu")
     assert one.mesh.shape == {"dp": 1, "tp": 1} and one.mesh.size == 1
 
-    def rank(r):
-        mesh = tdm.ft_init_device_mesh(None, {"fsdp": 2}, groups=worlds[r], device="cpu").mesh
-        x = torch.tensor([r + 1.0])
-        mesh.axis("fsdp").psum_([x])
-        return mesh.axis_index("fsdp"), x.item()
+    for axis in ("fsdp", "pp", "ep"):
+        worlds = multihost.local_worlds(2)
 
-    assert multihost.run_ranks(rank, 2, timeout=60.0) == [(0, 3.0), (1, 3.0)]
+        def rank(r, axis=axis):
+            mesh = tdm.ft_init_device_mesh(None, {axis: 2}, groups=worlds[r], device="cpu").mesh
+            x = torch.tensor([r + 1.0])
+            mesh.axis(axis).psum_([x])
+            return mesh.axis_index(axis), x.item()
+
+        assert multihost.run_ranks(rank, 2, timeout=60.0) == [(0, 3.0), (1, 3.0)], axis
 
 
 def test_shift_and_all_to_all_match_jax_bitwise():

@@ -9,10 +9,11 @@ the way in and out.  A MoE block's leaves (``router [L, d, E]``,
 layout in the port, so they move as they are.  Both directions go through
 numpy.
 
-Sharded weights (fsdp, tp): ``params_from_jax(..., mesh=...)`` gives a
-rank the blocks of the JAX pytree that JAX's ``shard_params`` gives the
-device at the same place of the same mesh, and :func:`gather_to_jax`
-puts every rank's blocks back together into the whole pytree.
+Sharded weights (fsdp, tp, ep; pp by layer): ``params_from_jax(...,
+mesh=...)`` gives a rank the blocks of the JAX pytree that JAX's
+``shard_params`` gives the device at the same place of the same mesh (under
+``pp``, of its stage's layers only), and :func:`gather_to_jax` puts every
+rank's blocks back together into the whole pytree.
 """
 
 from __future__ import annotations
@@ -110,7 +111,8 @@ def gather_to_jax(
     """The whole JAX pytree (numpy f32) from every rank's shards, in rank
     order over the inner mesh ``mesh_shape`` (row-major, as
     ``ft_init_device_mesh`` lays the ranks out): each rank's parameters, or
-    anything keyed by their names, such as its gradients."""
+    anything keyed by their names, such as its gradients.  A leaf comes
+    from the ranks that hold it (under ``pp``, its stage's)."""
     names = list(mesh_shape)
     sizes = tuple(int(n) for n in mesh_shape.values())
     if len(shards) != int(np.prod(sizes, dtype=np.int64)):
@@ -119,11 +121,15 @@ def gather_to_jax(
               for s in shards]
     whole: Dict[str, np.ndarray] = {}
     for name, spec in param_specs(cfg, mesh_shape).items():
-        first = shards[0][name].detach().float().cpu().numpy()
+        holders = [r for r, named in enumerate(shards) if name in named]
+        if not holders:
+            raise ValueError(f"no rank holds {name}")
+        first = shards[holders[0]][name].detach().float().cpu().numpy()
         full = np.empty(
             [n * (mesh_shape[a] if a else 1) for n, a in zip(first.shape, spec)],
             np.float32)
-        for rank, named in enumerate(shards):
+        for rank in holders:
+            named = shards[rank]
             coords = dict(zip(names, np.unravel_index(rank, sizes)))
             index = tuple(
                 slice(None) if a is None else

@@ -19,8 +19,7 @@ array; each rank slices its batch rows (``dp``) and its sequence chunk
 (``cp``) with the next-token targets that cross into the next chunk, runs
 the model on the chunk at global rotary positions, and the gradients of the
 replicated weights are summed over the inner axes (``jit`` sums them
-implicitly in the JAX package).  MoE and ``remat_policy="dots"`` under an
-inner mesh are not ported yet (ROADMAP §A 3(c)).
+implicitly in the JAX package).
 
 Weight sharding (fsdp, tp).  :func:`param_specs` gives each parameter the
 JAX package's partition (its ``param_specs`` in this layout, whose matrices
@@ -46,14 +45,39 @@ to GSPMD:
   loss are vocab-parallel (each rank's ``V / tp`` logits, the logsumexp
   from a max and a sum over ``tp``, the target's logit from its owner).
 
+Expert parallelism (ep).  ``ep`` joins the batch axes (rows split over
+``dp``, ``fsdp``, ``ep``, the JAX package's ``_batch_axes``); a MoE block's
+experts split over it (``models/moe.py`` ``moe_param_specs``, ``MoEGroup``:
+routing, capacity and aux from the global batch, the expert buffers handed
+to their experts' ``ep`` ranks and back).  The router and the attention
+weights, whole on every ``ep`` rank, have their gradients summed over it.
+
+Pipeline parallelism (pp).  :func:`shard_params` keeps a ``pp`` rank's
+``n_layers / pp`` consecutive blocks (keyed by their global index, so
+parameter names stay those of the whole model) beside the replicated
+embedding and final norm; :func:`forward_pipelined` runs them as a GPipe
+schedule (``parallel/pipeline.py``) with the embedding on the first stage
+and the head on the last, and with a ``pp`` mesh :func:`loss_fn` and
+:func:`make_grad_step` take that path.  The stages run attention through
+``attn_impl`` as :func:`Transformer.forward` does, kernels A-C included:
+the JAX package keeps its pipeline's blocks on the plain tile body because
+its partial-manual ``shard_map`` cannot lower Pallas, a limit of its
+compiler that the port does not share.  Inside the pipe a MoE layer routes
+each microbatch on its own (and, under ``cp``, each sequence chunk, with
+its aux averaged over ``cp``), as the JAX package's does.
+
 Rematerialization: ``remat=True`` recomputes each block in the backward
 (``torch.utils.checkpoint``).  ``remat_policy="full"`` keeps only the block
 inputs; ``"dots"`` is the JAX package's ``dots_saveable``: selective
 activation checkpointing keeps every matmul's output (``aten.mm``,
-``addmm``, ``bmm``) and kernel A's (the flash forward op) and recomputes
-only the elementwise work between them.
-
-Not ported yet: expert parallelism and the pipeline.
+``addmm``, ``bmm``), kernel A's (the flash forward op, on every ring tile
+too) and the ring's and Ulysses' exchanges' (``mesh_shift``,
+``mesh_all_to_all``), and recomputes only the elementwise work between
+them: under ``cp`` the recompute moves no byte.  That is a memory choice
+(the exchanged K/V chunks are kept); the values are those of ``"full"``.
+Other collectives (the fsdp gathers, the tp sums, the MoE routing
+statistics and expert buffers) are repeated in the recompute, in the same
+order on every rank.
 """
 
 from __future__ import annotations
@@ -72,7 +96,15 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
-from torchft_tpu_torch.models.moe import MoEConfig, moe_ffn_stats
+from torchft_tpu_torch.models.moe import (
+    EP_AXIS,
+    FSDP_AXIS,
+    TP_AXIS,
+    MoEConfig,
+    MoEGroup,
+    moe_ffn_stats,
+    moe_param_specs,
+)
 from torchft_tpu_torch.ops import softmax_math
 from torchft_tpu_torch.ops.flash_attention import flash_attention, flash_fwd_op
 from torchft_tpu_torch.ops.ring_attention import (
@@ -80,25 +112,28 @@ from torchft_tpu_torch.ops.ring_attention import (
     ring_attention,
 )
 from torchft_tpu_torch.ops.ulysses import ulysses_attention
+from torchft_tpu_torch.parallel import pipeline
 from torchft_tpu_torch.parallel.axis import (
+    EXCHANGE_OPS,
     MeshAxis,
     copy_to_axis,
     gather_shards,
+    psum,
     reduce_from_axis,
 )
 from torchft_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
 
-#: the inner mesh's axis names: batch, sequence, and the two that shard
-#: weights
+#: the inner mesh's axis names: batch, sequence and pipeline stages here;
+#: the two that shard weights (fsdp, tp) and experts (ep) from models/moe.py
 DP_AXIS = "dp"
 CP_AXIS = "cp"
-FSDP_AXIS = "fsdp"
-TP_AXIS = "tp"
+PP_AXIS = "pp"
 #: the axes the batch rows split over, in the JAX package's order
-#: (``_batch_axes``: the row block is ``dp_index * fsdp + fsdp_index``)
-BATCH_AXES = (DP_AXIS, FSDP_AXIS)
+#: (``_batch_axes``: the row block is ``(dp_index * fsdp + fsdp_index) * ep
+#: + ep_index``)
+BATCH_AXES = (DP_AXIS, FSDP_AXIS, EP_AXIS)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,13 +171,15 @@ class TransformerConfig:
 # ---------------------------------------------------------------------------
 
 #: the ops whose outputs ``remat_policy="dots"`` keeps: the matmuls and
-#: kernel A (``jax.checkpoint_policies.dots_saveable`` keeps dot outputs)
+#: kernel A (``jax.checkpoint_policies.dots_saveable`` keeps dot outputs),
+#: and the ring's and Ulysses' exchanges, so that the recompute issues none
 _DOT_OPS = frozenset({
     torch.ops.aten.mm.default,
     torch.ops.aten.addmm.default,
     torch.ops.aten.bmm.default,
     torch.ops.aten.baddbmm.default,
     flash_fwd_op._opoverload,
+    *EXCHANGE_OPS,
 })
 
 
@@ -187,20 +224,24 @@ def param_specs(
     is split over, or None.  The JAX package's ``param_specs`` in the
     port's layout (matrices ``[out, in]``, one entry a layer): the tied
     embedding ``(tp, fsdp)``, column-parallel matrices ``(tp, fsdp)``,
-    row-parallel ones ``(fsdp, tp)``, the norms whole.  With a ``mesh``
-    (an inner mesh or a mesh shape), axes it does not name are dropped,
-    and a mesh with neither ``fsdp`` nor ``tp`` is warned about once, as
-    the JAX package does (weights then stay whole on every rank)."""
-    if cfg.n_experts:
-        raise NotImplementedError(
-            "MoE under an inner mesh (moe_param_specs) is not ported yet "
-            "(ROADMAP §A 3(c))")
+    row-parallel ones ``(fsdp, tp)``, the norms whole, a MoE block's leaves
+    as ``moe_param_specs`` says (experts over ``ep``).  The layers split
+    over ``pp`` by block, not by dim (:func:`shard_params`).  With a
+    ``mesh`` (an inner mesh or a mesh shape), axes it does not name are
+    dropped, and a mesh with neither ``fsdp`` nor ``tp`` is warned about
+    once, as the JAX package does (weights then stay whole on every
+    rank)."""
     specs: "Dict[str, Tuple[Optional[str], ...]]" = {"embed": (TP_AXIS, FSDP_AXIS)}
+    moe = moe_param_specs() if cfg.n_experts else {}
     for layer in range(cfg.n_layers):
         specs[f"blocks.{layer}.attn_norm"] = (None,)
         for name, spec in _BLOCK_SPECS.items():
             if name == "w_gate":
                 specs[f"blocks.{layer}.mlp_norm"] = (None,)
+                if moe:
+                    for leaf, leaf_spec in moe.items():
+                        specs[f"blocks.{layer}.{leaf}"] = leaf_spec
+                    break
             specs[f"blocks.{layer}.{name}.weight"] = spec
     specs["final_norm"] = (None,)
     if mesh is None:
@@ -214,6 +255,30 @@ def param_specs(
     return {
         n: tuple(a if a in names else None for a in spec) for n, spec in specs.items()
     }
+
+
+class StageBlocks(nn.ModuleDict):
+    """A pipeline stage's blocks, keyed by their global layer index (so
+    that parameter names are the whole model's); iterates over the blocks
+    in order and indexes by layer."""
+
+    def __iter__(self) -> "Iterator[nn.Module]":
+        return iter(self.values())
+
+    def __getitem__(self, layer: "int | str") -> nn.Module:
+        return super().__getitem__(str(layer))
+
+    def layers(self) -> "list":
+        return [int(k) for k in self.keys()]
+
+
+def stage_range(cfg: TransformerConfig, mesh: Any) -> range:
+    """The layers this rank's ``pp`` stage holds."""
+    pp = _axis(mesh, PP_AXIS)
+    if cfg.n_layers % pp.size:
+        raise ValueError(f"layer count {cfg.n_layers} not divisible by pp axis size {pp.size}")
+    per = cfg.n_layers // pp.size
+    return range(pp.rank * per, (pp.rank + 1) * per)
 
 
 def _local_block(
@@ -233,17 +298,30 @@ def _local_block(
 
 def shard_params(model: "Transformer", mesh: Any) -> "Transformer":
     """Keep only this rank's block of each parameter (:func:`param_specs`
-    over the inner ``mesh``), in place; returns ``model``.  Every rank
-    starts from the same whole weights (one seed), as ``jax.device_put``
-    of one array to a ``NamedSharding`` does."""
+    over the inner ``mesh``), and under ``pp`` only its stage's blocks
+    (:class:`StageBlocks`), in place; returns ``model``.  Every rank starts
+    from the same whole weights (one seed), as ``jax.device_put`` of one
+    array to a ``NamedSharding`` does."""
     cfg = model.cfg
-    if tuple(model.embed.shape) != (cfg.vocab_size, cfg.d_model):
+    if tuple(model.embed.shape) != (cfg.vocab_size, cfg.d_model) or isinstance(
+            model.blocks, StageBlocks):
         raise ValueError(f"model is already sharded (embed {tuple(model.embed.shape)})")
+    if mesh.axis_size(PP_AXIS) > 1:
+        model.blocks = StageBlocks(
+            {str(l): model.blocks[l] for l in stage_range(cfg, mesh)})
     specs = param_specs(cfg, mesh)
     with torch.no_grad():
         for name, p in model.named_parameters():
             p.data = _local_block(p.data, specs[name], mesh).clone()
     return model
+
+
+def _layer_of(name: str) -> "Optional[Tuple[int, str]]":
+    """``(layer, rest)`` of a block parameter's name, else None."""
+    if not name.startswith("blocks."):
+        return None
+    layer, rest = name[len("blocks."):].split(".", 1)
+    return int(layer), rest
 
 
 def gather_params(
@@ -253,16 +331,27 @@ def gather_params(
     """The inverse of :func:`shard_params`, collective: each of this rank's
     shards in ``named`` (its parameters, or anything keyed by their names,
     such as its gradients) made whole by gathering it over the axes its
-    :func:`param_specs` entry splits it on, leaf by leaf.  Every rank of
-    the group calls it; with ``keep=False`` a rank takes part in the
-    gathers but holds none of the whole tensors (and returns ``{}``)."""
+    :func:`param_specs` entry splits it on, leaf by leaf, and under ``pp``
+    every stage's blocks gathered beside this stage's.  Every rank of the
+    group calls it; with ``keep=False`` a rank takes part in the gathers
+    but holds none of the whole tensors (and returns ``{}``)."""
     specs = param_specs(cfg, mesh)
+    pp = mesh.axis(PP_AXIS)
     out = {}
     for name, t in named.items():
         whole = t.detach()
         for dim, axis in enumerate(specs[name]):
             if axis is not None and mesh.axis_size(axis) > 1:
                 (whole,) = mesh.axis(axis).all_gather([whole.contiguous()], [dim])
+        layer = _layer_of(name)
+        if pp.size > 1 and layer is not None:
+            # every stage holds the same leaves of its own layers, in order
+            (stages,) = pp.all_gather([whole[None].contiguous()], [0])
+            per = cfg.n_layers // pp.size
+            local = layer[0] - pp.rank * per
+            for s in range(pp.size) if keep else ():
+                out[f"blocks.{s * per + local}.{layer[1]}"] = stages[s]
+            continue
         if keep:
             out[name] = whole
     return out
@@ -276,11 +365,16 @@ def _check_shards(model: "Transformer", mesh: Any) -> None:
     cfg = model.cfg
     want = (cfg.vocab_size // mesh.axis_size(TP_AXIS),
             cfg.d_model // mesh.axis_size(FSDP_AXIS))
-    if tuple(model.embed.shape) != want:
+    layers = list(stage_range(cfg, mesh))
+    held = model.blocks.layers() if isinstance(model.blocks, StageBlocks) else list(
+        range(len(model.blocks)))
+    experts = [b.w_gate.shape[0] for b in model.blocks] if cfg.n_experts else []
+    if (tuple(model.embed.shape) != want or held != layers
+            or any(e != cfg.n_experts // mesh.axis_size(EP_AXIS) for e in experts)):
         raise ValueError(
             f"parameters are not sharded for {mesh!r} (embed "
-            f"{tuple(model.embed.shape)}, expected {want}): call "
-            "shard_params(model, mesh)")
+            f"{tuple(model.embed.shape)}, expected {want}; layers {held[:1]}..{held[-1:]}, "
+            f"expected {layers[:1]}..{layers[-1:]}): call shard_params(model, mesh)")
 
 
 # ---------------------------------------------------------------------------
@@ -332,6 +426,19 @@ def _moe_cfg(cfg: TransformerConfig) -> MoEConfig:
         capacity_factor=cfg.moe_capacity_factor,
         dtype=cfg.dtype,
         param_dtype=cfg.param_dtype,
+    )
+
+
+def _moe_group(mesh: Any, chunk_routing: bool) -> "Optional[MoEGroup]":
+    """The MoE layer's group over the inner mesh: its rows over the batch
+    axes, and its routing over the ``cp`` chunks too unless each chunk
+    routes on its own (``chunk_routing``, inside the pipeline)."""
+    if mesh is None or mesh.size == 1:
+        return None
+    return MoEGroup(
+        rows=tuple(mesh.axis(a) for a in BATCH_AXES),
+        seq=None if chunk_routing else mesh.axis(CP_AXIS),
+        ep=mesh.axis(EP_AXIS), fsdp=mesh.axis(FSDP_AXIS), tp=mesh.axis(TP_AXIS),
     )
 
 
@@ -488,11 +595,13 @@ class Block(nn.Module):
         return k.index_select(2, pick), v.index_select(2, pick)
 
     def forward(
-        self, x: torch.Tensor, positions: torch.Tensor, mesh: Any = None
+        self, x: torch.Tensor, positions: torch.Tensor, mesh: Any = None,
+        chunk_routing: bool = False,
     ) -> "Tuple[torch.Tensor, torch.Tensor]":
         """``mesh`` is the inner mesh ring/Ulysses attention runs over and
         the weights are sharded over; ``x`` is then this rank's rows and
-        chunk, ``positions`` global."""
+        chunk, ``positions`` global.  A MoE FFN routes the group's whole
+        batch, or each ``cp`` chunk on its own with ``chunk_routing``."""
         cfg = self.cfg
         b, t, _ = x.shape
         hd = cfg.head_dim
@@ -511,7 +620,9 @@ class Block(nn.Module):
         h = _rms_norm(x, self.mlp_norm)
         if cfg.n_experts:
             params = {n: getattr(self, n) for n in MOE_LEAVES}
-            y, aux, dropped = moe_ffn_stats(h, params, self.moe_cfg)
+            group = _moe_group(mesh, chunk_routing)
+            extra = () if group is None else (group,)
+            y, aux, dropped = moe_ffn_stats(h, params, self.moe_cfg, *extra)
             self.moe_stats = {"aux": aux.detach(), "dropped": dropped}
             return x + y, aux
         h = _column_input(tp, h)
@@ -548,42 +659,55 @@ class Transformer(nn.Module):
         ``cp_rank * T_local``, attention runs over the ``cp`` axis, the
         parameters are this rank's shards (:func:`shard_params`) and, with
         ``tp > 1``, the logits are this rank's ``V / tp`` vocabulary
-        columns."""
+        columns.  A ``pp`` mesh takes :func:`forward_pipelined`."""
         cfg = self.cfg
-        if cfg.remat and cfg.remat_policy not in ("full", "dots"):
-            raise ValueError(
-                f"unknown remat_policy {cfg.remat_policy!r}; expected 'full' or 'dots'"
-            )
         _check_mesh(cfg, mesh)
-        kw = {"context_fn": _dots_context} if cfg.remat_policy == "dots" else {}
+        if _axis(mesh, PP_AXIS).size > 1:
+            raise ValueError(
+                f"{mesh!r} has a {PP_AXIS!r} axis: run the stages with "
+                "forward_pipelined(model, tokens, mesh, microbatches)")
         b, t = tokens.shape
-        fsdp, tp = _axis(mesh, FSDP_AXIS), _axis(mesh, TP_AXIS)
-        table = None
-        if fsdp.size > 1 or tp.size > 1:
-            _check_shards(self, mesh)
-            # the tied table, whole over fsdp, in the compute dtype's values
-            (table,) = gather_shards(fsdp, [self.embed], [1], [cfg.dtype])
-            table = table.float()
-            x = _embed_local(table, tokens, tp).to(cfg.dtype)
-        else:
-            # _embed: a gather of the activation-dtype table (same values
-            # as casting the table first)
-            x = self.embed[tokens].to(cfg.dtype)
-        offset = mesh.axis_index(CP_AXIS) * t if mesh is not None else 0
-        positions = offset + torch.arange(t, device=tokens.device)
+        x, table = self._embed(tokens, mesh)
+        positions = _positions(mesh, t, tokens.device)
         aux_sum = torch.zeros((), dtype=torch.float32, device=tokens.device)
         for block in self.blocks:
-            if cfg.remat and self.training:
-                x, aux = checkpoint(
-                    block, x, positions, mesh, use_reentrant=False, **kw
-                )
-            else:
-                x, aux = block(x, positions, mesh)
+            x, aux = self._block(block, x, positions, mesh, False)
             aux_sum = aux_sum + aux
-        logits = self._head(x, table, tp)
+        logits = self._head(x, table, _axis(mesh, TP_AXIS))
         if return_aux:
             return logits, aux_sum
         return logits
+
+    def _block(self, block: Block, x, positions, mesh: Any, chunk_routing: bool):
+        """One block, recomputed in the backward under ``cfg.remat``."""
+        cfg = self.cfg
+        if cfg.remat and self.training:
+            kw = {"context_fn": _dots_context} if cfg.remat_policy == "dots" else {}
+            return checkpoint(block, x, positions, mesh, chunk_routing,
+                              use_reentrant=False, **kw)
+        return block(x, positions, mesh, chunk_routing)
+
+    def _table(self, mesh: Any) -> "Optional[torch.Tensor]":
+        """The tied table, whole over fsdp, in the compute dtype's values
+        (f32), when the weights are sharded; else None."""
+        fsdp, tp = _axis(mesh, FSDP_AXIS), _axis(mesh, TP_AXIS)
+        if fsdp.size == 1 and tp.size == 1:
+            return None
+        _check_shards(self, mesh)
+        (table,) = gather_shards(fsdp, [self.embed], [1], [self.cfg.dtype])
+        return table.float()
+
+    def _embed(
+        self, tokens: torch.Tensor, mesh: Any
+    ) -> "Tuple[torch.Tensor, Optional[torch.Tensor]]":
+        """The tokens' embedding rows in the compute dtype, and the table
+        :meth:`_table` gathered for them (the head takes it again)."""
+        table = self._table(mesh)
+        if table is None:
+            # _embed: a gather of the activation-dtype table (same values
+            # as casting the table first)
+            return self.embed[tokens].to(self.cfg.dtype), None
+        return _embed_local(table, tokens, _axis(mesh, TP_AXIS)).to(self.cfg.dtype), table
 
     def _head(
         self, x: torch.Tensor, table: "Optional[torch.Tensor]" = None,
@@ -605,6 +729,12 @@ class Transformer(nn.Module):
         if table is None:
             return torch.matmul(x.to(act).float(), self.embed.to(act).float().t())
         return torch.matmul(copy_to_axis(tp, x.to(act).float()), table.t())
+
+
+def _positions(mesh: Any, t: int, device: torch.device) -> torch.Tensor:
+    """Global rotary positions of this rank's chunk of ``t`` positions."""
+    offset = mesh.axis_index(CP_AXIS) * t if mesh is not None else 0
+    return offset + torch.arange(t, device=device)
 
 
 def _embed_local(table: torch.Tensor, tokens: torch.Tensor, tp: MeshAxis) -> torch.Tensor:
@@ -652,34 +782,45 @@ def init_params(
     return model
 
 
+#: the inner axes the model runs over
+MESH_AXES = (DP_AXIS, FSDP_AXIS, EP_AXIS, TP_AXIS, CP_AXIS, PP_AXIS)
+
+
 def _check_mesh(cfg: TransformerConfig, mesh: Any) -> None:
-    """What the port runs under an inner mesh so far: ``dp``, ``fsdp``,
-    ``tp`` and ``cp`` axes, a dense FFN, and ``remat_policy="dots"`` only
-    without ``cp`` (ROADMAP §A 3(c) for ``pp``, ``ep`` and the rest)."""
+    """The config's remat policy, and what an inner mesh must hold for it:
+    only the axes of :data:`MESH_AXES`, sizes that split the heads, the
+    experts and the layers."""
+    if cfg.remat and cfg.remat_policy not in ("full", "dots"):
+        raise ValueError(
+            f"unknown remat_policy {cfg.remat_policy!r}; expected 'full' or 'dots'"
+        )
     if mesh is None or mesh.size == 1:
         return
-    known = 1
-    for name in (DP_AXIS, FSDP_AXIS, TP_AXIS, CP_AXIS):
-        known *= mesh.axis_size(name)
-    if known != mesh.size:
-        raise NotImplementedError(
-            f"inner mesh {mesh!r}: only the {DP_AXIS!r}, {FSDP_AXIS!r}, "
-            f"{TP_AXIS!r} and {CP_AXIS!r} axes are ported; the pipeline (pp) "
-            "and expert parallelism (ep) follow (ROADMAP §A 3(c))"
-        )
-    if cfg.n_experts:
-        raise NotImplementedError(
-            "MoE under an inner mesh needs the global routing statistics "
-            "(ROADMAP §A 3(c))"
-        )
-    if cfg.remat and cfg.remat_policy == "dots" and _cp_size(mesh) > 1:
-        raise NotImplementedError(
-            "remat_policy='dots' under context parallelism (ROADMAP §A 3(c)); "
-            "use 'full' or remat=False"
-        )
-    tp = mesh.axis_size(TP_AXIS)
+    unknown = [n for n in mesh.axis_names if n not in MESH_AXES and mesh.axis_size(n) > 1]
+    if unknown:
+        raise ValueError(f"inner mesh {mesh!r}: unknown axes {unknown}; expected {MESH_AXES}")
+    tp, ep = mesh.axis_size(TP_AXIS), mesh.axis_size(EP_AXIS)
     if cfg.n_heads % tp:
         raise ValueError(f"{cfg.n_heads} query heads do not split over {TP_AXIS}={tp}")
+    if cfg.n_experts % ep:
+        raise ValueError(f"{cfg.n_experts} experts do not split over {EP_AXIS}={ep}")
+    stage_range(cfg, mesh)  # the layers split over pp
+
+
+def _check_tokens(tokens: torch.Tensor, mesh: Any, microbatches: int = 1) -> "Tuple[int, int]":
+    """``(rows, positions)`` of this rank's share of the group's ``[B,
+    T]`` tokens: ``B`` splits over the batch axes (and the microbatches),
+    ``T`` over ``cp``."""
+    b, t = tokens.shape
+    _, blocks = _row_block(mesh)
+    cp = mesh.axis_size(CP_AXIS)
+    if b % (blocks * microbatches) or t % cp:
+        raise ValueError(
+            f"tokens {tuple(tokens.shape)} do not split over "
+            f"{'x'.join(BATCH_AXES)}={blocks} rows"
+            + (f" in each of {microbatches} microbatches" if microbatches > 1 else "")
+            + f", {CP_AXIS}={cp}")
+    return b // blocks, t // cp
 
 
 def _nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -713,7 +854,7 @@ def _nll_vocab_parallel(
 
 def _row_block(mesh: Any) -> "Tuple[int, int]":
     """``(index, count)`` of this rank's block of batch rows: the rows
-    split over ``dp`` then ``fsdp`` (:data:`BATCH_AXES`)."""
+    split over ``dp``, ``fsdp`` then ``ep`` (:data:`BATCH_AXES`)."""
     index, count = 0, 1
     for name in BATCH_AXES:
         index = index * mesh.axis_size(name) + mesh.axis_index(name)
@@ -721,47 +862,180 @@ def _row_block(mesh: Any) -> "Tuple[int, int]":
     return index, count
 
 
+def _chunk_and_targets(
+    rows: torch.Tensor, mesh: Any, tl: int
+) -> "Tuple[torch.Tensor, torch.Tensor]":
+    """This rank's sequence chunk of ``rows`` and its next-token targets,
+    which run one position into the next chunk (the last chunk's are one
+    shorter)."""
+    start = mesh.axis_index(CP_AXIS) * tl
+    return rows[:, start:start + tl], rows[:, start + 1:start + tl + 1]
+
+
+def _shares(mesh: Any) -> int:
+    """How many ranks hold a distinct share of the loss outside the
+    pipeline: all but the ``tp`` ranks of a row block and chunk, which
+    hold the same one."""
+    return mesh.size // mesh.axis_size(TP_AXIS)
+
+
 def loss_fn(
-    model: Transformer, tokens: torch.Tensor, mesh: Any = None
+    model: Transformer, tokens: torch.Tensor, mesh: Any = None, microbatches: int = 4,
 ) -> torch.Tensor:
     """Next-token cross-entropy, mean over all positions but the last.
     MoE configs add the weighted load-balance auxiliary loss.
 
     With an inner ``mesh``, ``tokens`` is the replica group's whole
     ``[B, T]`` array and the result is this rank's share: its rows
-    (``dp`` x ``fsdp``) and chunk (``cp``), whose targets run one position
-    into the next chunk (only the last ``cp`` rank drops the final
-    position), summed and divided by the global count ``B * (T - 1)``.
-    The ``tp`` ranks of a row block and chunk hold the same share; the
-    shares over the other axes sum to the loss."""
-    _check_mesh(model.cfg, mesh)
+    (``dp`` x ``fsdp`` x ``ep``) and chunk (``cp``), whose targets run one
+    position into the next chunk (only the last ``cp`` rank drops the final
+    position), summed and divided by the global count ``B * (T - 1)``, plus
+    its part of the aux loss.  The ``tp`` ranks of a row block and chunk
+    hold the same share; the shares over the other axes sum to the loss.
+    A ``pp`` mesh runs the stages in ``microbatches`` (:func:`forward_pipelined`;
+    only the last stage's share is not 0)."""
+    cfg = model.cfg
+    _check_mesh(cfg, mesh)
     if mesh is None or mesh.size == 1:
         logits, aux = model(tokens, return_aux=True, mesh=mesh)
         loss = _nll(logits[:, :-1], tokens[:, 1:]).mean()
-        if model.cfg.n_experts:
-            loss = loss + model.cfg.moe_aux_weight * aux
+        if cfg.n_experts:
+            loss = loss + cfg.moe_aux_weight * aux
         return loss
-    if mesh.axis_size(FSDP_AXIS) > 1 or mesh.axis_size(TP_AXIS) > 1:
-        _check_shards(model, mesh)
+    _check_shards(model, mesh)
+    if mesh.axis_size(PP_AXIS) > 1:
+        return _pipelined_loss(model, tokens, mesh, microbatches)
     b, t = tokens.shape
-    block, blocks = _row_block(mesh)
-    cp = mesh.axis_size(CP_AXIS)
-    if b % blocks or t % cp:
-        raise ValueError(
-            f"tokens {tuple(tokens.shape)} do not split over "
-            f"{'x'.join(BATCH_AXES)}={blocks} rows, {CP_AXIS}={cp}")
-    bl, tl = b // blocks, t // cp
-    rows = tokens[block * bl:(block + 1) * bl]
-    start = mesh.axis_index(CP_AXIS) * tl
-    chunk = rows[:, start:start + tl]
-    targets = rows[:, start + 1:start + tl + 1]
-    logits = model(chunk, mesh=mesh)
+    bl, tl = _check_tokens(tokens, mesh)
+    block, _ = _row_block(mesh)
+    chunk, targets = _chunk_and_targets(tokens[block * bl:(block + 1) * bl], mesh, tl)
+    logits, aux = model(chunk, return_aux=True, mesh=mesh)
     nll = _nll_vocab_parallel(logits[:, :targets.shape[1]], targets, mesh.axis(TP_AXIS))
-    return nll.sum() / (b * (t - 1))
+    loss = nll.sum() / (b * (t - 1))
+    if cfg.n_experts:
+        # every share-holding rank computes the same global aux
+        loss = loss + cfg.moe_aux_weight * aux / _shares(mesh)
+    return loss
+
+
+# ---------------------------------------------------------------------------
+# pipeline parallelism
+# ---------------------------------------------------------------------------
+
+
+def _pipelined_rows(tokens: torch.Tensor, mesh: Any, microbatches: int) -> torch.Tensor:
+    """This rank's rows of the group's tokens under the pipeline: its share
+    of each microbatch (microbatch ``m`` is the rows ``[m * B / M, (m + 1)
+    * B / M)``, as the JAX package splits the batch, and a rank's share is
+    its row block of them), microbatch after microbatch."""
+    b, t = tokens.shape
+    bl, _ = _check_tokens(tokens, mesh, microbatches)
+    block, blocks = _row_block(mesh)
+    mbl = bl // microbatches
+    return tokens.reshape(microbatches, blocks, mbl, t)[:, block].reshape(bl, t)
+
+
+def _run_stages(
+    model: Transformer, tokens: torch.Tensor, mesh: Any, microbatches: int
+) -> "Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]":
+    """The GPipe schedule over this rank's rows and chunk ``tokens``:
+    ``(x, aux, table)``, the last stage's final activations and per-row
+    aux sums (zeros on other stages), and the tied table when the weights
+    are sharded (gathered on the first and last stages only)."""
+    cfg = model.cfg
+    _check_mesh(cfg, mesh)
+    _check_shards(model, mesh)
+    if cfg.attn_impl not in ("auto", "dense", "flash", "ring", "ulysses"):
+        raise ValueError(
+            f"forward_pipelined does not support attn_impl {cfg.attn_impl!r}; "
+            "expected 'auto', 'dense', 'flash', 'ring' or 'ulysses'")
+    pp = mesh.axis(PP_AXIS)
+    b, t = tokens.shape
+    if b % microbatches:
+        raise ValueError(f"batch {b} not divisible by microbatches {microbatches}")
+    table = None
+    if pp.rank == 0:
+        x, table = model._embed(tokens, mesh)
+    else:  # only the first stage feeds the pipe
+        x = torch.zeros((b, t, cfg.d_model), dtype=cfg.dtype, device=tokens.device)
+    if pp.rank == pp.size - 1 and table is None:
+        table = model._table(mesh)
+    positions = _positions(mesh, t, tokens.device)
+    cp = mesh.axis(CP_AXIS)
+    moe = bool(cfg.n_experts)
+
+    def layer(h, block):
+        y, aux = model._block(block, h["x"] if moe else h, positions, mesh, True)
+        if not moe:
+            return y
+        # each chunk routed on its own: the average over cp is the batch's
+        return {"x": y, "aux": h["aux"] + psum(cp, aux) / cp.size}
+
+    mbs = pipeline.split_microbatches(
+        {"x": x, "aux": torch.zeros(b, dtype=torch.float32, device=x.device)} if moe else x,
+        microbatches)
+    out = pipeline.pipeline_stage_outputs(list(model.blocks), mbs, layer, pp)
+    if moe:
+        return out["x"].reshape(b, t, -1), out["aux"].reshape(b), table
+    return out.reshape(b, t, -1), None, table
+
+
+def forward_pipelined(
+    model: Transformer, tokens: torch.Tensor, mesh: Any, microbatches: int = 4,
+    return_aux: bool = False,
+) -> "torch.Tensor | Tuple[torch.Tensor, torch.Tensor]":
+    """Pipeline-parallel forward: the decoder blocks GPipe-scheduled over the
+    ``pp`` axis (``parallel/pipeline.py``), the embedding on the first
+    stage and the head on every stage on the last stage's outputs (which
+    are broadcast over ``pp``).  ``model`` holds this stage's blocks
+    (:func:`shard_params`); ``tokens`` is this rank's rows and chunk (row
+    ``i`` in microbatch ``i // (B_local / M)``).  Returns this rank's logits
+    (its ``V / tp`` columns under tp), the same on every stage; with
+    ``return_aux`` also the MoE aux loss, the mean over the group's
+    examples of each one's sum over the layers of its microbatch's aux (0
+    for a dense FFN).  Gradients reach the blocks through the last stage's
+    logits only; the head's parameters, used on every stage, get theirs on
+    each."""
+    x, aux, _ = _run_stages(model, tokens, mesh, microbatches)
+    pp = mesh.axis(PP_AXIS)
+    x, aux = pipeline.broadcast_from_last(pp, (x, aux))
+    logits = model._head(x, model._table(mesh), mesh.axis(TP_AXIS))
+    if not return_aux:
+        return logits
+    if aux is None:
+        return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+    total = aux.sum()
+    for name in BATCH_AXES:
+        total = psum(mesh.axis(name), total)
+    return logits, total / (tokens.shape[0] * _row_block(mesh)[1])
+
+
+def _pipelined_loss(
+    model: Transformer, tokens: torch.Tensor, mesh: Any, microbatches: int
+) -> torch.Tensor:
+    """:func:`loss_fn`'s share under ``pp``: the last stage's rows and
+    chunk (head, vocab-parallel NLL, and its rows' aux); on the other
+    stages a 0 that starts their backward through the schedule."""
+    cfg = model.cfg
+    b, t = tokens.shape
+    _, tl = _check_tokens(tokens, mesh, microbatches)
+    chunk, targets = _chunk_and_targets(_pipelined_rows(tokens, mesh, microbatches), mesh, tl)
+    x, aux, table = _run_stages(model, chunk, mesh, microbatches)
+    pp = mesh.axis(PP_AXIS)
+    if pp.rank < pp.size - 1:
+        # the schedule's outputs are zeros here; their gradient is unused
+        return x.float().sum() * 0.0
+    logits = model._head(x, table, mesh.axis(TP_AXIS))
+    nll = _nll_vocab_parallel(logits[:, :targets.shape[1]], targets, mesh.axis(TP_AXIS))
+    loss = nll.sum() / (b * (t - 1))
+    if aux is not None:
+        # the cp ranks of a row hold the same (averaged) aux
+        loss = loss + cfg.moe_aux_weight * aux.sum() / (b * mesh.axis_size(CP_AXIS))
+    return loss
 
 
 def make_grad_step(
-    cfg: TransformerConfig, mesh: Any = None
+    cfg: TransformerConfig, mesh: Any = None, microbatches: int = 4,
 ) -> "Callable[[Transformer, torch.Tensor], Tuple[torch.Tensor, Dict[str, torch.Tensor]]]":
     """A ``(model, tokens) -> (loss, grads)`` step — the FT-DDP shape:
     ``Manager.allreduce`` averages the grads across replica groups, then the
@@ -770,17 +1044,19 @@ def make_grad_step(
     With an inner ``mesh`` (see :func:`loss_fn`), every rank of the group
     returns the global loss and the gradients of its own parameters (its
     shards), each summed over the batch axes that do not split it, as its
-    :func:`param_specs` entry says: ``dp`` and ``cp`` always, ``fsdp`` for
-    the whole leaves (the norms; the shards' sum over ``fsdp`` is the
-    weight gather's reduce-scatter), ``tp`` never (the column-parallel
-    inputs' gradients are summed over it already).  Ranks holding the same
-    block of a leaf get the same bits."""
+    :func:`param_specs` entry says: ``dp`` and ``cp`` always, ``ep`` for
+    all but the experts, ``fsdp`` for the whole leaves (the norms, the
+    router; the shards' sum over ``fsdp`` is the weight gather's
+    reduce-scatter), ``tp`` never (the column-parallel inputs' gradients
+    are summed over it already), ``pp`` for the embedding and the final
+    norm only (a stage's blocks are its own).  Ranks holding the same block
+    of a leaf get the same bits.  A ``pp`` mesh runs ``microbatches``."""
 
     def step(
         model: Transformer, tokens: torch.Tensor
     ) -> "Tuple[torch.Tensor, Dict[str, torch.Tensor]]":
         model.zero_grad(set_to_none=True)
-        loss = loss_fn(model, tokens, mesh)
+        loss = loss_fn(model, tokens, mesh, microbatches)
         loss.backward()
         if mesh is None or mesh.size == 1:
             grads = {
@@ -796,7 +1072,11 @@ def make_grad_step(
         for axis in mesh.axes.values():
             if axis.size == 1 or axis.name == TP_AXIS:
                 continue
-            axis.psum_([g for n, g in grads.items() if axis.name not in specs[n]] + [loss])
+            if axis.name == PP_AXIS:
+                summed = [g for n, g in grads.items() if _layer_of(n) is None]
+            else:
+                summed = [g for n, g in grads.items() if axis.name not in specs[n]]
+            axis.psum_(summed + [loss])
         return loss, grads
 
     return step
@@ -806,12 +1086,17 @@ __all__ = [
     "BATCH_AXES",
     "CP_AXIS",
     "DP_AXIS",
+    "EP_AXIS",
     "FSDP_AXIS",
+    "MESH_AXES",
     "MOE_LEAVES",
+    "PP_AXIS",
     "TP_AXIS",
     "Block",
+    "StageBlocks",
     "Transformer",
     "TransformerConfig",
+    "forward_pipelined",
     "gather_params",
     "init_params",
     "loss_fn",
@@ -819,4 +1104,5 @@ __all__ = [
     "param_specs",
     "resolve_device",
     "shard_params",
+    "stage_range",
 ]

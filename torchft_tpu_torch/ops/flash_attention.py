@@ -44,6 +44,7 @@ import torch
 
 from torchft_tpu_torch import _kernels
 from torchft_tpu_torch.ops import softmax_math
+from torchft_tpu_torch.parallel import axis as axis_ops
 
 _NEG_INF = -1e30
 _ALIGN = 128
@@ -280,22 +281,22 @@ flash_bwd_q.offset_launches = 0  # of them, tiles at a non-zero offset
 
 @torch.library.custom_op(
     "torchft_tpu_torch::flash_fwd", mutates_args=(),
-    schema="(Tensor q3, Tensor k3, Tensor v3, float scale, bool causal)"
-    " -> (Tensor, Tensor)",
+    schema="(Tensor q3, Tensor k3, Tensor v3, float scale, bool causal,"
+    " int q_off=0, int k_off=0) -> (Tensor, Tensor)",
 )
 def flash_fwd_op(
     q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor, scale: float,
-    causal: bool,
+    causal: bool, q_off: int = 0, k_off: int = 0,
 ) -> "Tuple[torch.Tensor, torch.Tensor]":
     """:func:`flash_fwd` as a dispatcher op, so that selective activation
     checkpointing (the transformer's ``remat_policy="dots"``) can name
     kernel A's outputs and keep them instead of launching it again in the
-    backward."""
-    return flash_fwd(q3, k3, v3, scale, causal)
+    backward (the ring's tiles at their offsets too)."""
+    return flash_fwd(q3, k3, v3, scale, causal, q_off, k_off)
 
 
 @flash_fwd_op.register_fake
-def _(q3, k3, v3, scale, causal):
+def _(q3, k3, v3, scale, causal, q_off=0, k_off=0):
     return torch.empty_like(q3), q3.new_empty(q3.shape[:2], dtype=torch.float32)
 
 
@@ -372,7 +373,10 @@ class _RingFlash(torch.autograd.Function):
     """``ring_flash_local`` of the JAX package: the forward runs kernel A on
     each (local Q x visiting K/V) tile at global offsets and merges the
     tiles' ``(O, lse)`` in f32; the backward runs B and C per tile against
-    the merged lse, and the f32 dK/dV accumulators rotate with K/V."""
+    the merged lse, and the f32 dK/dV accumulators rotate with K/V.  The
+    forward's tiles and shifts are dispatcher ops (``flash_fwd_op``,
+    ``mesh_shift``), which ``remat_policy="dots"`` keeps: its recompute
+    launches no tile and moves no byte."""
 
     @staticmethod
     def forward(ctx, q, k, v, axis, causal: bool):  # type: ignore[override]
@@ -387,7 +391,7 @@ class _RingFlash(torch.autograd.Function):
         for s in range(size):
             kv_idx = (idx - s) % size
             ke, ve = _expand_gqa(kc, vc, h)
-            o_s, lse_s = flash_fwd(
+            o_s, lse_s = flash_fwd_op(
                 q3, _to3(ke), _to3(ve), scale, causal, idx * tq, kv_idx * tk
             )
             # blockwise softmax combination over chunks (f32); a tile whose
@@ -399,7 +403,7 @@ class _RingFlash(torch.autograd.Function):
             o3 = o3 * (w1 / denom)[..., None] + o_s.float() * (w2 / denom)[..., None]
             lse = m + softmax_math.log(denom)
             if s < size - 1:  # the last shift would carry nothing back
-                kc, vc = axis.shift((kc, vc))
+                kc, vc = axis_ops.shift(axis, kc, vc)
         o = _from3(o3.to(q.dtype), b, h)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.axis, ctx.causal = axis, causal

@@ -32,14 +32,26 @@ Weight sharding (fsdp, tp) is written by hand over these ops, as the JAX
 package's GSPMD places them: :func:`gather_shards` (all-gather forward,
 reduce-scatter backward) gathers an fsdp-sharded weight, and
 :func:`copy_to_axis` / :func:`reduce_from_axis` (identity one way, psum the
-other) surround a tensor-parallel matmul pair.
+other) surround a tensor-parallel matmul pair.  Expert parallelism uses
+:func:`reduce_scatter` and :func:`psum` (whose gradients are an all-gather
+and a psum), and the pipeline :meth:`MeshAxis.hop` (``ppermute`` with the
+non-cyclic permutation ``[(i, i + 1)]``) and :meth:`MeshAxis.broadcast`.
+
+The differentiable ring shift and all-to-all go through dispatcher ops
+(``torchft_tpu_torch::mesh_shift``, ``mesh_all_to_all``) that name their
+axis by :attr:`MeshAxis.handle`, so that selective activation
+checkpointing (the transformer's ``remat_policy="dots"``) can keep their
+outputs: the recompute in the backward then issues no exchange, and no
+rank replays a collective that the others do not.
 """
 
 from __future__ import annotations
 
 import collections
+import itertools
 import logging
 import time
+import weakref
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -48,10 +60,16 @@ logger = logging.getLogger(__name__)
 
 #: the largest host buffer one psum_ bucket stages (bytes of f32)
 _BUCKET_BYTES = 64 << 20
+#: live axes by handle: the dispatcher ops below name their axis by an int
+_AXES: "weakref.WeakValueDictionary[int, MeshAxis]" = weakref.WeakValueDictionary()
+_handles = itertools.count(1)
 
 
 def _as_bytes(t: torch.Tensor) -> torch.Tensor:
-    return t.contiguous().reshape(-1).view(torch.uint8)
+    flat = t.reshape(-1)
+    if flat.stride(0) != 1:  # a broadcast value: size-1 dims may keep stride 0
+        flat = torch.empty_like(flat, memory_format=torch.contiguous_format).copy_(flat)
+    return flat.view(torch.uint8)
 
 
 def _buckets(tensors: "List[torch.Tensor]"):
@@ -73,8 +91,9 @@ class MeshAxis:
     """One axis of the inner mesh: ``name``, its c10d ``group`` (None for
     an axis of size 1), this rank's ``rank`` on it and its ``size``.
 
-    ``stats`` counts, per op (``shift``, ``all_to_all``, ``psum``,
-    ``all_gather``, ``reduce_scatter``), the bytes this rank sent and the
+    ``stats`` counts, per op (``shift``, ``hop``, ``broadcast``,
+    ``all_to_all``, ``psum``, ``all_gather``, ``reduce_scatter``), the
+    bytes this rank sent and the
     seconds the op held the caller; on the
     gloo path a CUDA tensor's staging copies are included (the queued
     compute that produced it is waited for before the clock starts)."""
@@ -89,6 +108,8 @@ class MeshAxis:
         self.backend = group.name() if group is not None else "none"
         self.stats: "collections.Counter[str]" = collections.Counter()
         self._logged = False
+        self.handle = next(_handles)
+        _AXES[self.handle] = self
 
     def __repr__(self) -> str:
         return f"MeshAxis({self.name!r}, rank {self.rank} of {self.size}, {self.backend})"
@@ -178,6 +199,80 @@ class MeshAxis:
                 r = r.to(t.device, non_blocking=True)
             out.append(r.view(t.dtype).reshape(t.shape))
         self._stop("shift", t0, sum(b.numel() for b in sends), staged)
+        return out
+
+    def hop(
+        self, send: "Optional[Sequence[torch.Tensor]]",
+        recv_like: "Optional[Sequence[torch.Tensor]]", offset: int = 1,
+    ) -> "Optional[List[torch.Tensor]]":
+        """One hop of ``jax.lax.ppermute`` with the non-cyclic permutation
+        ``[(i, i + offset)]``: ``send`` (if given) goes to rank ``rank +
+        offset``, and this rank receives (if ``recv_like`` is given) tensors
+        of those shapes and types from rank ``rank - offset``, which it
+        returns.  The caller knows which ranks send: a rank gives ``send``
+        exactly when its peer gives ``recv_like``.  Receives are posted
+        before sends, so on NCCL a line of hops resolves from its first
+        rank.  Not differentiable (the pipeline orders its own backward
+        hops)."""
+        if not send and not recv_like:
+            return None
+        ref = (send or recv_like)[0]
+        staged = self._staged(ref)
+        t0 = self._start(staged)
+        works, recvs, nbytes = [], None, 0
+        if recv_like:
+            src = self.rank - offset
+            if not 0 <= src < self.size:
+                raise ValueError(f"{self!r}: no rank {src} to receive from")
+            recvs = [self._empty_like(_as_bytes(t), staged) for t in recv_like]
+            works += [self.group.recv([r], src, tag) for tag, r in enumerate(recvs)]
+        if send:
+            dst = self.rank + offset
+            if not 0 <= dst < self.size:
+                raise ValueError(f"{self!r}: no rank {dst} to send to")
+            sends = [_as_bytes(t) for t in send]
+            if staged:
+                sends = [self._to_host(b) for b in sends]
+                torch.cuda.current_stream().synchronize()
+            works += [self.group.send([b], dst, tag) for tag, b in enumerate(sends)]
+            nbytes = sum(b.numel() for b in sends)
+        for w in works:
+            w.wait()
+        out = None
+        if recvs is not None:
+            out = []
+            for t, r in zip(recv_like, recvs):
+                if staged:
+                    r = r.to(t.device, non_blocking=True)
+                out.append(r.view(t.dtype).reshape(t.shape))
+        self._stop("hop", t0, nbytes, staged)
+        return out
+
+    def broadcast(
+        self, tensors: "Sequence[torch.Tensor]", root: int
+    ) -> "List[torch.Tensor]":
+        """Rank ``root``'s ``tensors`` on every rank (each rank passes
+        tensors of the same shapes and types), as raw bytes in one
+        collective.  Not differentiable (the pipeline's
+        ``broadcast_from_last`` gives it its gradient rule)."""
+        tensors = list(tensors)
+        if self.size == 1:
+            return tensors
+        staged = self._staged(tensors[0])
+        t0 = self._start(staged)
+        parts = [_as_bytes(t) for t in tensors]
+        flat = torch.cat(parts) if len(parts) > 1 else parts[0].clone()
+        if staged:
+            flat = self._to_host(flat)
+            torch.cuda.current_stream().synchronize()
+        self.group.broadcast(flat, root).wait()
+        if staged:
+            flat = flat.to(tensors[0].device, non_blocking=True)
+        out, off = [], 0
+        for t, p in zip(tensors, parts):
+            out.append(flat[off:off + p.numel()].view(t.dtype).reshape(t.shape))
+            off += p.numel()
+        self._stop("broadcast", t0, flat.numel() if self.rank == root else 0, staged)
         return out
 
     def all_to_all_raw(
@@ -337,40 +432,131 @@ class MeshAxis:
 # ---------------------------------------------------------------------------
 
 
-class _Shift(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, axis: MeshAxis, offset: int, *tensors):  # type: ignore[override]
-        ctx.axis, ctx.offset = axis, offset
-        return tuple(axis.shift(tensors, offset))
+@torch.library.custom_op(
+    "torchft_tpu_torch::mesh_shift", mutates_args=(),
+    schema="(Tensor[] xs, int axis, int offset) -> Tensor[]",
+)
+def _shift_op(xs: "List[torch.Tensor]", axis: int, offset: int) -> "List[torch.Tensor]":
+    return _AXES[axis].shift(xs, offset)
 
-    @staticmethod
-    def backward(ctx, *grads):  # type: ignore[override]
-        return (None, None, *ctx.axis.shift(grads, -ctx.offset))
+
+@_shift_op.register_fake
+def _(xs, axis, offset):
+    return [torch.empty_like(x) for x in xs]
+
+
+def _shift_setup(ctx, inputs, output) -> None:
+    ctx.axis, ctx.offset = inputs[1], inputs[2]
+
+
+def _shift_backward(ctx, grads):
+    grads = [g.contiguous() for g in grads]
+    return _shift_op(grads, ctx.axis, -ctx.offset), None, None
+
+
+_shift_op.register_autograd(_shift_backward, setup_context=_shift_setup)
 
 
 def shift(axis: MeshAxis, *tensors: torch.Tensor, offset: int = 1) -> "Tuple[torch.Tensor, ...]":
-    """:meth:`MeshAxis.shift` under autograd: the gradient shifts back."""
-    return _Shift.apply(axis, offset, *tensors)
+    """:meth:`MeshAxis.shift` under autograd (the gradient shifts back),
+    as the dispatcher op ``torchft_tpu_torch::mesh_shift``."""
+    if axis.size == 1 or offset % axis.size == 0:
+        return tensors
+    return tuple(_shift_op([t.contiguous() for t in tensors], axis.handle, offset))
 
 
-class _AllToAll(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, axis: MeshAxis, x, split_dim: int, concat_dim: int):  # type: ignore[override]
-        ctx.axis, ctx.dims = axis, (split_dim, concat_dim)
-        return axis.all_to_all_raw(x, split_dim, concat_dim)
+@torch.library.custom_op(
+    "torchft_tpu_torch::mesh_all_to_all", mutates_args=(),
+    schema="(Tensor x, int axis, int split_dim, int concat_dim) -> Tensor",
+)
+def _all_to_all_op(x: torch.Tensor, axis: int, split_dim: int, concat_dim: int) -> torch.Tensor:
+    return _AXES[axis].all_to_all_raw(x, split_dim, concat_dim)
 
-    @staticmethod
-    def backward(ctx, g):  # type: ignore[override]
-        split_dim, concat_dim = ctx.dims
-        return None, ctx.axis.all_to_all_raw(g.contiguous(), concat_dim, split_dim), None, None
+
+@_all_to_all_op.register_fake
+def _(x, axis, split_dim, concat_dim):
+    shape = list(x.shape)
+    size = _AXES[axis].size
+    shape[split_dim] //= size
+    shape[concat_dim] *= size
+    return x.new_empty(shape)
+
+
+def _all_to_all_setup(ctx, inputs, output) -> None:
+    ctx.axis, ctx.dims = inputs[1], (inputs[2], inputs[3])
+
+
+def _all_to_all_backward(ctx, g):
+    split_dim, concat_dim = ctx.dims
+    return _all_to_all_op(g.contiguous(), ctx.axis, concat_dim, split_dim), None, None, None
+
+
+_all_to_all_op.register_autograd(_all_to_all_backward, setup_context=_all_to_all_setup)
 
 
 def all_to_all(
     axis: MeshAxis, x: torch.Tensor, split_dim: int, concat_dim: int
 ) -> torch.Tensor:
-    """:meth:`MeshAxis.all_to_all_raw` under autograd: the gradient takes
-    the inverse all-to-all."""
-    return _AllToAll.apply(axis, x, split_dim, concat_dim)
+    """:meth:`MeshAxis.all_to_all_raw` under autograd (the gradient takes
+    the inverse all-to-all), as the dispatcher op
+    ``torchft_tpu_torch::mesh_all_to_all``."""
+    if axis.size == 1:
+        return x
+    return _all_to_all_op(x.contiguous(), axis.handle, split_dim, concat_dim)
+
+
+#: the exchange ops whose outputs ``remat_policy="dots"`` keeps
+EXCHANGE_OPS = (
+    torch.ops.torchft_tpu_torch.mesh_shift.default,
+    torch.ops.torchft_tpu_torch.mesh_all_to_all.default,
+)
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, axis: MeshAxis, x):  # type: ignore[override]
+        ctx.axis = axis
+        out = x.contiguous().clone()
+        axis.psum_([out])
+        return out
+
+    @staticmethod
+    def backward(ctx, g):  # type: ignore[override]
+        g = g.contiguous().clone()
+        ctx.axis.psum_([g])
+        return None, g
+
+
+def psum(axis: MeshAxis, x: torch.Tensor) -> torch.Tensor:
+    """The sum over ``axis`` of the parts its ranks hold, on every rank,
+    when every rank goes on to use it for its own share of the loss: the
+    gradient of each part is the sum of the ranks' output gradients (a
+    psum both ways).  The MoE layer's global routing statistics and
+    expert buffers are such sums."""
+    if axis.size == 1:
+        return x
+    return _Psum.apply(axis, x)
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, axis: MeshAxis, x, dim: int):  # type: ignore[override]
+        ctx.axis, ctx.dim = axis, dim
+        (out,) = axis.reduce_scatter([x.contiguous()], [dim])
+        return out
+
+    @staticmethod
+    def backward(ctx, g):  # type: ignore[override]
+        (out,) = ctx.axis.all_gather([g.contiguous()], [ctx.dim])
+        return None, out, None
+
+
+def reduce_scatter(axis: MeshAxis, x: torch.Tensor, dim: int) -> torch.Tensor:
+    """:meth:`MeshAxis.reduce_scatter` under autograd: block ``rank`` of
+    the sum over the axis; the gradient is all-gathered back."""
+    if axis.size == 1:
+        return x
+    return _ReduceScatter.apply(axis, x, dim)
 
 
 class _GatherShards(torch.autograd.Function):
@@ -515,11 +701,14 @@ class InnerMesh:
 
 
 __all__ = [
+    "EXCHANGE_OPS",
     "InnerMesh",
     "MeshAxis",
     "all_to_all",
     "copy_to_axis",
     "gather_shards",
+    "psum",
     "reduce_from_axis",
+    "reduce_scatter",
     "shift",
 ]

@@ -10,11 +10,15 @@ values used for loss scaling and data sharding, and the FT allreduce runs
 between the groups' same-rank members (``Manager`` with ``group_rank`` =
 this rank).
 
-Inner axes ``dp``, ``fsdp``, ``tp`` and ``cp`` are supported: ``dp`` and
-``cp`` keep the weights whole on every rank (the gradients are summed over
-them), ``fsdp`` and ``tp`` shard them (``models/transformer.py``
-``param_specs``; HSDP is the FT dimension over such groups).  ``pp`` and
-``ep`` shard layers or experts and are not ported yet (ROADMAP §A 3(c)).
+Inner axes ``dp``, ``fsdp``, ``tp``, ``cp``, ``pp`` and ``ep`` are
+supported: ``dp`` and ``cp`` keep the weights whole on every rank (the
+gradients are summed over them), ``fsdp`` and ``tp`` shard them
+(``models/transformer.py`` ``param_specs``; HSDP is the FT dimension over
+such groups), ``pp`` gives each rank its stage's layers and ``ep`` its
+experts (while the batch rows split over it too).  With one Manager per
+rank, rank r of every group holds the same coordinates on every axis, so
+it averages its shard gradients with, and heals from, rank r of the other
+groups.
 """
 
 from __future__ import annotations
@@ -27,9 +31,9 @@ from torchft_tpu_torch.parallel.axis import InnerMesh, MeshAxis
 from torchft_tpu_torch.parallel.multihost import GroupWorld
 from torchft_tpu_torch.utils.device import resolve_device
 
-#: the inner axes the port builds: batch (dp), weight sharding (fsdp, tp)
-#: and sequence (cp)
-SUPPORTED_AXES = ("dp", "fsdp", "tp", "cp")
+#: the inner axes the port builds: batch (dp), weight sharding (fsdp, tp),
+#: sequence (cp), pipeline stages (pp) and experts (ep)
+SUPPORTED_AXES = ("dp", "fsdp", "tp", "cp", "pp", "ep")
 
 
 class ManagedDeviceMesh:
@@ -203,9 +207,8 @@ def ft_init_device_mesh(
         )
     for name, n in mesh_shape.items():
         if n > 1 and name not in SUPPORTED_AXES:
-            raise NotImplementedError(
-                f"inner axis {name!r} (size {n}) is not ported yet; the port "
-                f"supports {SUPPORTED_AXES} so far (ROADMAP §A 3(c))"
+            raise ValueError(
+                f"unknown inner axis {name!r} (size {n}); expected one of {SUPPORTED_AXES}"
             )
     coords = np.unravel_index(world.rank, shape) if shape else ()
     axes = []
