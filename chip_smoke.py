@@ -38,8 +38,9 @@ Phases, any failure exits non-zero:
    PGTransport and both train two more steps.  Every survivor step must
    commit, losses must be finite, the two groups must end bitwise equal,
    and every kernel must have launched (its twin never).
-4. Heal path: the same flagship in three replica groups as threads on the
-   card, each with a Manager given no checkpoint transport, so the default
+4. Heal path: the flagship's widths cut to 4 layers (``HEAL_LAYERS``) in
+   three replica groups as threads on the card, each with a Manager given
+   no checkpoint transport, so the default
    HTTPTransport heals (``TORCHFT_HEAL_STREAM`` and ``TORCHFT_PLAN_VERIFY``
    on); five survivor steps, group 2 shuts down after step 3, restarts from
    a fresh init and heals striped from groups 0 and 1.  Every survivor step
@@ -70,11 +71,11 @@ Phases, any failure exits non-zero:
    backup and outer state at the end, each sync's wire bytes below a
    3.5th of the f32 bytes, and D, A, B and C must have launched (D's twin
    never).
-7. Cold restore: two groups of the flagship's widths cut to 8 layers
+7. Cold restore: two groups of the flagship's widths cut to 2 layers
    (``COLD_RESTORE_LAYERS``) with AdamW on the default
    HTTPTransport spill every committed step to a durable store under a
    fresh temporary ``TORCHFT_STORE_DIR`` (``TORCHFT_STORE_SPILL_S=0``,
-   ``TORCHFT_STORE_VERSIONS=1``: about 6.2 GB of disk, removed at the end),
+   ``TORCHFT_STORE_VERSIONS=1``: about 2.5 GB of disk, removed at the end),
    train 4 steps and stop together; ``shutdown`` drains the last version.
    Two fresh groups from another init seed must cold-restore step 4 from
    both disks, with parameters and AdamW state bitwise equal (by sha256 per
@@ -82,7 +83,8 @@ Phases, any failure exits non-zero:
    train one more step.  Prints each spill's snapshot, encode and write
    times, the bytes on disk, the versions skipped, and each restore's wall,
    phases, bytes, GB/s and stripe sources beside PGTransport's heal.
-8. Reshard: four flagship groups under a memory ceiling of half the
+8. Reshard: four groups of the flagship's widths cut to 4 layers
+   (``RESHARD_LAYERS``) under a memory ceiling of half the
    sharded bytes bootstrap at layout (2, 2, 1); the sharded state is a flat
    f32 copy of the parameters on the card, updated each committed step by
    ``update_sharded`` with ``owned -= lr * avg_grad[interval]``.  Group 3
@@ -92,11 +94,12 @@ Phases, any failure exits non-zero:
    bytes, stage-and-fetch and commit ms, step times and peak memory.
 9. MoE serving: two groups train the flagship's widths with an MoE FFN
    (8 experts, top-2, capacity factor 1.25, aux weight 0.01; depth cut to
-   4 layers, full remat) with FT-DDP and SGD for 6 steps; group 0's Manager
-   publishes every committed step (``attach_weight_publisher``, f32 wire,
-   8 fragments, 2 versions kept) into a chain of two serving relays, and a
-   serving client fetches versions until it holds the last, loading each
-   into a fresh model on the card.  Each fetched version's parameters and
+   2 layers, ``MOE_LAYERS``, full remat) with FT-DDP and SGD for 5 steps;
+   group 0's Manager publishes every committed step
+   (``attach_weight_publisher``, f32 wire, 8 fragments, 2 versions kept)
+   into a chain of two serving relays, and a serving client fetches
+   versions until it holds the last, loading each into a fresh model on
+   the card.  Each fetched version's parameters and
    eval logits must equal group 0's bitwise; the root relay dies once the
    leaf serves v3, and the leaf must fail over to the publisher.  Prints
    the step and its ring phase, the aux loss and dropped share per step,
@@ -109,8 +112,8 @@ Phases, any failure exits non-zero:
     Manager per process (``group_rank`` = its cp rank, ``group_world_size``
     2, the group's Manager server found through the group's store), an
     inner mesh ``{"cp": 2}`` over gloo (CUDA tensors staged through pinned
-    host buffers), and the flagship at full width and depth
-    (``CP_LAYERS``) with ring attention, T = 1024 split into two chunks of
+    host buffers), and the flagship at full width, its depth cut to
+    ``CP_LAYERS`` (4), with ring attention, T = 1024 split into two chunks of
     512, B = 8, AdamW, three committed steps.  At step 0, group 0's rank 0
     also runs the one-device flash model and the same model in f32 with
     plain dense attention on the whole sequence, and group 0 runs Ulysses
@@ -132,14 +135,14 @@ Phases, any failure exits non-zero:
     spawned as in phase 10, each process with its own Manager over its
     shards (``group_rank`` = its rank in the group), an inner mesh
     ``{"fsdp": 2, "tp": 2}`` over gloo with pinned host staging, and the
-    flagship at full width and depth (16 layers, full remat) with
+    flagship at full width, its depth cut to ``HSDP_LAYERS`` (4; full remat), with
     its weights sharded as the JAX package's ``param_specs`` say: each
     block's weights gathered over fsdp in its forward (and again in the
     recompute) and reduce-scattered in its backward, column- and
     row-parallel matmuls over tp, attention on the rank's 3 heads through
     kernels A, B and C (the 3 KV heads, which tp = 2 does not divide,
     expanded first), a vocab-parallel head and loss; B = 8, T = 1024,
-    AdamW, six committed steps.  At step 0 group 0's rank 0 also runs the
+    AdamW, four committed steps.  At step 0 group 0's rank 0 also runs the
     one-device flash model and the f32 model with plain dense attention on
     the whole weights and tokens; the sharded loss must match the
     one-device model's to 1e-3 relative and the gathered gradients hold
@@ -166,13 +169,13 @@ Phases, any failure exits non-zero:
     Manager, an inner mesh ``{"pp": 2, "ep": 2}`` over gloo with pinned
     host staging, and the MoE model of phase 9 (the flagship's widths, 8
     experts of d_ff 4096, top-2, capacity factor 1.25, aux weight 0.01;
-    depth cut to 4 layers, full remat): each rank holds its stage's two
-    blocks and four of each block's experts, the blocks run as a GPipe
+    depth cut to 2 layers, full remat): each rank holds its stage's
+    block and four of its experts, the blocks run as a GPipe
     schedule of 4 microbatches (the pp hops are the non-cyclic ppermute),
     attention ``auto`` (kernels A, B and C on each stage's rows), each
     microbatch routed over both ep ranks' tokens with the global capacity
     and slot offsets, the expert buffers reduce-scattered to their experts'
-    ep ranks and all-gathered back; B = 8, T = 1024, AdamW, six committed
+    ep ranks and all-gathered back; B = 8, T = 1024, AdamW, four committed
     steps.  At step 0 group 0's rank 0 also runs the one-device flash model
     and the f32 model with plain dense attention on the whole weights, each
     microbatch on its own (the pipeline's routing); the routings near a tie
@@ -186,6 +189,42 @@ Phases, any failure exits non-zero:
     hops, ep dispatch and return, in-group sums and the FT ring phase, the
     GPipe bubble beside the share of a stage's time in hops, bytes by axis,
     heals, and device and host memory per process.
+
+13. Supervised fleet: three lighthouse peers started as processes of the
+    port's CLI (``python -m torchft_tpu_torch.lighthouse --peers ...``)
+    and the port's ``ReplicaGroupLauncher`` supervising two trainer
+    processes (``python3 -c "import chip_smoke;
+    chip_smoke.fleet_member()"``, ``max_restarts=1``, the group from the
+    launcher's env triple, ``TORCHFT_LIGHTHOUSE`` the three peers).  Each
+    trains the flagship at full width and depth (attention ``auto``:
+    kernels A, B and C; B = 8, T = 1024, AdamW) under a Manager over
+    ``ProcessGroupBabyTCP`` (its collectives in a spawned worker, the
+    leaves staged through ``/dev/shm``) with FT-DDP, the default HTTP heal
+    and ``min_replica_size=1``, its batches rows of a seeded synthetic
+    token set drawn by a ``StatefulDistributedSampler`` whose state rides
+    in the Manager's state dict, for ``FLEET_STEPS`` committed steps.
+    Three faults: group 1's Baby worker is SIGKILLed while step
+    ``FLEET_WORKER_KILL_STEP``'s allreduce is in flight (neither group
+    commits it, neither trainer dies, fresh workers re-run it); the
+    lighthouse leader is SIGKILLed after commit ``FLEET_LEADER_KILL_AFTER``
+    (quorum ids keep rising, under the new leader's term); group 1's trainer
+    is SIGKILLed after commit ``FLEET_TRAINER_KILL_AFTER``, the launcher
+    restarts it once, and it heals live from group 0.  At the end the groups
+    must be bitwise equal (parameters, AdamW state, sampler state), every
+    other step committed, every trainer exited 0, A, B and C launched in
+    every incarnation, no Baby worker holding the card (no
+    ``/dev/nvidia*`` open: importing torch maps ``libcuda`` without a
+    context) and no segment of the
+    fleet left in ``/dev/shm``; then each trainer runs an int8
+    ``allreduce_quantized`` of its last gradients over its Baby PG, kernel D
+    quantizing on the card, bitwise equal across the groups and within the
+    codec's bound of the f32 sum.  Prints the Baby step split (the leaves
+    from the card into ``/dev/shm``, one copy; pipe send to reply: the
+    worker's TCP ring and its staging out; mapping the results; the rest:
+    the Manager's average, host to device, the commit vote and AdamW), the
+    workers' start and
+    resident memory, the peak bytes in ``/dev/shm``, each fault's time to
+    recover, the heal, and host and device memory per trainer.
 
 The last two lines are the kernels' JSON record and the device JSON.
 """
@@ -206,6 +245,7 @@ import time
 import traceback
 from concurrent.futures import ThreadPoolExecutor
 
+T_START = time.monotonic()  # the script's clock, for each phase's place in it
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 PEAK_F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
@@ -845,11 +885,19 @@ def time_heal_encode(state) -> "dict":
     return out
 
 
+#: phase 4's depth, cut from the flagship's 16 layers so that the whole
+#: script exits well inside its 1200 s on a slow host; phase 13 heals the
+#: flagship's full 5.57 GB over HTTP instead (widths are never cut)
+HEAL_LAYERS = 4
+
+
 def heal_path(cfg=None, batch: int = 8, seq: int = 1024, device: str = "cuda") -> "dict":
     """Phase 4 at the flagship config: three replica groups with the
     Manager's default transport (HTTP, striped and delta heal), the live
     plan check armed; ``cfg``/``batch``/``seq``/``device`` let a CPU
     rehearsal drive the same code at a tiny size."""
+    import dataclasses
+
     import torch
 
     from torchft_tpu_torch.checkpointing import fragdata
@@ -858,7 +906,7 @@ def heal_path(cfg=None, batch: int = 8, seq: int = 1024, device: str = "cuda") -
     from torchft_tpu_torch.utils import metrics
 
     if cfg is None:
-        cfg = flagship_config()
+        cfg = dataclasses.replace(flagship_config(), n_layers=HEAL_LAYERS)
     total_steps, kill_at, n_groups, victim = 5, 3, 3, 2
     flightrec.RECORDER.clear()
     on_card = device == "cuda"
@@ -1008,11 +1056,11 @@ def _disk_bytes(root: str) -> int:
     )
 
 
-#: the cold-restore phase's depth, cut from 16 so that the whole script,
-#: phase 9 included, stays near its earlier wall time: the phase spills,
-#: stops and restores 3.08 GB of model and AdamW state a group instead of
-#: 5.57 GB
-COLD_RESTORE_LAYERS = 8
+#: the cold-restore phase's depth, cut from 16 so that the whole script
+#: exits well inside its 1200 s: the phase spills, stops and restores 1.21
+#: GB of model and AdamW state a group instead of 5.57 GB (widths are never
+#: cut)
+COLD_RESTORE_LAYERS = 2
 
 
 def cold_restore_path(cfg=None, batch: int = 8, seq: int = 1024,
@@ -1160,6 +1208,11 @@ def jax_leaf_order(names) -> "list":
     return sorted(names, key=key)
 
 
+#: phase 8's depth, cut from the flagship's 16 layers so that the whole
+#: script exits well inside its 1200 s (widths are never cut)
+RESHARD_LAYERS = 4
+
+
 def reshard_path(cfg=None, batch: int = 8, seq: int = 1024, device: str = "cuda",
                  total_steps: int = 6, kill_at: int = 3) -> "dict":
     """Phase 8: four flagship groups under a ``LayoutConstraints`` memory
@@ -1173,7 +1226,10 @@ def reshard_path(cfg=None, batch: int = 8, seq: int = 1024, device: str = "cuda"
     ``kill_at``; the three survivors must re-plan to (1, 3, 1), re-shard
     live and commit the same epoch at the same step, and their shards,
     joined in shard order, must equal bitwise the full vector group 0
-    keeps with the same updates."""
+    keeps with the same updates.  The card runs the flagship's widths at
+    ``RESHARD_LAYERS`` layers."""
+    import dataclasses
+
     import torch
 
     from torchft_tpu_torch import Manager, ProcessGroupTCP, module_grads
@@ -1182,7 +1238,7 @@ def reshard_path(cfg=None, batch: int = 8, seq: int = 1024, device: str = "cuda"
     from torchft_tpu_torch.parallel import layout as tl
 
     if cfg is None:
-        cfg = flagship_config()
+        cfg = dataclasses.replace(flagship_config(), n_layers=RESHARD_LAYERS)
     n_groups, victim, lr = 4, 3, 1e-3
     on_card = device == "cuda"
     compute = threading.Lock()
@@ -1499,17 +1555,23 @@ def check_quant_kernels() -> "dict":
             (3 * n + 7) * el, n * el + 4 * n * r + el + 4 * r, PEAK_F32_FLOPS
         ),
     }
+    # E's function is one PyTorch call: int8 codes times their row's f32
+    # scale, promoted to f32 in one rounding (timed here only)
+    assert _bits_equal(torch.mul(p, s[:, None]), pq.dequantize_int8(s, p)), (
+        "torch.mul(codes, scales) differs from E")
+    library = {"quant_int8": None, "reduce_int8": None,
+               "dequant_int8": cuda_ms(lambda: torch.mul(p, s[:, None]), 20)}
     for name, (ms, plain_ms) in times.items():
         log(f"  {name}: {ms:.4f} ms (plain twin {plain_ms:.4f} ms, bound "
-            f"{bounds[name][0]:.4f} ms by {bounds[name][1]}, library None) "
+            f"{bounds[name][0]:.4f} ms by {bounds[name][1]}, library "
+            f"{library[name]}) "
             f"at ({r}, {c})" + (f", n={n}" if name == "reduce_int8" else ""))
     rl = largest.shape[0]
     bound_largest = (5 * rl * c + 4 * rl) / PEAK_BYTES * 1e3
     log(f"  quant_int8 at the largest fragment {tuple(largest.shape)}: "
         f"{d_largest:.4f} ms (bound {bound_largest:.4f} ms by bytes)")
     return {
-        "max_abs": err, "times": times, "bounds": bounds,
-        "library": {k: None for k in times},
+        "max_abs": err, "times": times, "bounds": bounds, "library": library,
     }
 
 
@@ -1776,10 +1838,12 @@ def diloco_path(
 # phase 9: the MoE transformer and the weight-serving tier
 # ---------------------------------------------------------------------------
 
-#: the MoE path's depth: at 16 layers the model holds 2.58 B parameters
-#: (10.3 GB in f32) and two groups' parameters, gradients and averaged
-#: gradients do not fit in 80 GB; 4 layers hold 681.6 M (2.73 GB a copy)
-MOE_LAYERS = 4
+#: the MoE paths' depth (phases 9 and 12): at 16 layers the model holds
+#: 2.58 B parameters (10.3 GB in f32) and two groups' parameters, gradients
+#: and averaged gradients do not fit in 80 GB; 2 layers (365.3 M, 1.46 GB a
+#: copy) keep the whole script well inside its 1200 s (widths are never
+#: cut)
+MOE_LAYERS = 2
 
 
 def moe_config(n_layers: int = MOE_LAYERS):
@@ -1958,7 +2022,7 @@ def check_small_models(batch: int = 64) -> "dict":
 
 
 def moe_serve_path(cfg=None, batch: int = 8, seq: int = 1024, device: str = "cuda",
-                   steps: int = 6, kill_after: int = 3, eval_batch: int = 2,
+                   steps: int = 5, kill_after: int = 3, eval_batch: int = 2,
                    failover_s: float = 10.0) -> "dict":
     """Phase 9: two groups train the MoE transformer (``moe_config``) with
     FT-DDP on the default HTTPTransport and SGD (lr 1e-2, no momentum: the
@@ -2237,8 +2301,10 @@ def log_moe_serve(card: str, msum: dict, layer: dict, small: dict) -> None:
 #: phase 10's in-group sequence-parallel (cp) size and its training steps
 CP_SIZE = 2
 CP_STEPS = 3
-#: phase 10's depth: the flagship's 16 layers (widths are never cut)
-CP_LAYERS = 16
+#: phase 10's depth, cut from the flagship's 16 layers so that the whole
+#: script, phase 13 included, exits well inside its 1200 s (widths are
+#: never cut)
+CP_LAYERS = 4
 #: Phase 10's step-0 checks, bf16 on the card; any one failing fails the
 #: run.  Loss (f32, a mean over 8184 positions): the ring's against the
 #: one-device flash model's, and Ulysses' against the ring's, within
@@ -2762,7 +2828,10 @@ def log_cp(card: str, csum: dict) -> None:
 #: phase 11's inner mesh (each replica group's processes), its training
 #: steps, and the commit after which group 1's processes are killed
 HSDP_INNER = {"fsdp": 2, "tp": 2}
-HSDP_STEPS = 6
+#: phase 11's depth, cut from 16 to 4 layers for the script's 1200 s, as
+#: CP_LAYERS (widths are never cut)
+HSDP_LAYERS = 4
+HSDP_STEPS = 4
 HSDP_KILL_AFTER = 2
 #: Phase 11's planted fault: the fsdp reduce-scatter averages instead of
 #: summing.  The loss is unchanged, the sharded leaves' gradients are
@@ -3149,7 +3218,8 @@ def hsdp_path(cfg=None, batch: int = 8, seq: int = 1024, device: str = "cuda",
     import dataclasses
 
     if cfg is None:
-        cfg = dataclasses.replace(flagship_config(), remat=True, remat_policy="full")
+        cfg = dataclasses.replace(flagship_config(), n_layers=HSDP_LAYERS, remat=True,
+                                  remat_policy="full")
     size = math.prod(HSDP_INNER.values())
     out, parked, killed_at, wall = killed_group_run(
         "hsdp", hsdp_worker, size, HSDP_KILL_AFTER, (cfg, batch, seq, device), timeout)
@@ -3249,7 +3319,7 @@ def log_hsdp(card: str, hsum: dict) -> None:
 #: phase 12's inner mesh, its training steps, the commit after which group
 #: 1's processes are killed, and the GPipe microbatch count
 PP_INNER = {"pp": 2, "ep": 2}
-PP_STEPS = 6
+PP_STEPS = 4
 PP_KILL_AFTER = 2
 PP_MICROBATCHES = 4
 #: Phase 12's references route as the pp x ep model did: its training
@@ -3746,6 +3816,641 @@ def log_pp(card: str, psum: dict) -> None:
         f"references' and planted controls' {json.dumps(psum['aside_launches'])}")
 
 
+# ---------------------------------------------------------------------------
+# phase 13: a supervised fleet of trainer processes on the Baby PG
+# ---------------------------------------------------------------------------
+
+FLEET_STEPS = 10  # committed steps of each trainer
+FLEET_WORKER_KILL_STEP = 3  # group 1's Baby worker is SIGKILLed in this step
+FLEET_LEADER_KILL_AFTER = 4  # the lighthouse leader is SIGKILLed after this commit
+FLEET_TRAINER_KILL_AFTER = 6  # group 1's trainer is SIGKILLed after this commit
+# group 0 holds this long before the worker-kill step's allreduce, so that
+# group 1's op is still in flight (waiting on group 0) when its worker dies
+FLEET_HOLD_S = 1.0
+FLEET_ROWS = 64  # rows of the seeded synthetic token set
+FLEET_LEASE_MS = 1000
+FLEET_SEED = 0
+FLEET_TRAINER = "import chip_smoke; chip_smoke.fleet_member()"
+
+
+def _write_json(path: str, doc: dict) -> None:
+    tmp = f"{path}.tmp"
+    with open(tmp, "w") as f:
+        json.dump(doc, f)
+    os.replace(tmp, path)
+
+
+def _read_json(path: str) -> "dict | None":
+    try:
+        with open(path) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return None
+
+
+def _proc_status(pid: int) -> dict:
+    """A process's resident memory and whether it holds the card: a CUDA
+    context keeps ``/dev/nvidia*`` open (``libcuda`` is mapped by any
+    process that imported torch, so it is recorded, not checked)."""
+    out = {"pid": pid}
+    try:
+        with open(f"/proc/{pid}/status") as f:
+            for line in f:
+                if line.startswith(("VmRSS:", "VmHWM:", "RssAnon:", "RssShmem:")):
+                    out[line.split(":")[0]] = int(line.split()[1]) * 1024
+        fds = []
+        for fd in os.listdir(f"/proc/{pid}/fd"):
+            with contextlib.suppress(OSError):
+                fds.append(os.readlink(f"/proc/{pid}/fd/{fd}"))
+        out["nvidia_fds"] = sum("/dev/nvidia" in f for f in fds)
+        with open(f"/proc/{pid}/maps") as f:
+            out["libcuda"] = any("libcuda" in line for line in f)
+    except OSError as e:
+        out["error"] = repr(e)
+    return out
+
+
+def _fleet_cfg(spec: dict):
+    import torch
+
+    from torchft_tpu_torch.models import transformer as tf
+
+    if spec["cfg"] is None:
+        return flagship_config()
+    fields = dict(spec["cfg"])
+    for k in ("dtype", "param_dtype"):
+        if k in fields:
+            fields[k] = getattr(torch, fields[k])
+    return tf.TransformerConfig(**fields)
+
+
+def _fleet_trainer(spec: dict, gid: int, groups: int) -> None:
+    """One trainer process of phase 13 (one incarnation of replica group
+    ``gid``): the flagship under a Manager over ``ProcessGroupBabyTCP`` with
+    FT-DDP and AdamW, its batches drawn by a ``StatefulDistributedSampler``
+    whose state rides in the Manager's state dict, its record rewritten to
+    ``<dir>/g<gid>_inc<n>.json`` after every step."""
+    import glob
+    import signal
+
+    import numpy as np
+    import torch
+
+    from torchft_tpu_torch import (
+        DistributedDataParallel,
+        Manager,
+        OptimizerWrapper,
+        ProcessGroupBabyTCP,
+        StatefulDistributedSampler,
+        module_grads,
+    )
+    from torchft_tpu_torch.models import transformer as tf
+    from torchft_tpu_torch.ops import flash_attention as fa
+    from torchft_tpu_torch.ops import pallas_quant as pq
+    from torchft_tpu_torch.ops.collectives import allreduce_quantized
+
+    d, device = spec["dir"], spec["device"]
+    on_card = device == "cuda"
+    inc = len(glob.glob(os.path.join(d, f"g{gid}_inc*.json")))
+    path = os.path.join(d, f"g{gid}_inc{inc}.json")
+    rec = {"group": gid, "incarnation": inc, "pid": os.getpid(),
+           "t_start": time.time(), "status": "starting", "steps": []}
+    _write_json(path, rec)
+    if not on_card:
+        torch.set_num_threads(2)
+
+    def sync() -> None:
+        if on_card:
+            torch.cuda.synchronize()
+
+    def hold(why: str, done) -> None:
+        rec["status"] = why
+        _write_json(path, rec)
+        deadline = time.monotonic() + spec["timeout"]
+        while not done():
+            assert time.monotonic() < deadline, f"held past the deadline: {why}"
+            time.sleep(0.05)
+        rec["status"] = "training"
+
+    cfg = _fleet_cfg(spec)
+    batch, seq, steps = spec["batch"], spec["seq"], spec["steps"]
+    table = np.random.default_rng(spec["seed"] + 7).integers(
+        0, cfg.vocab_size, size=(FLEET_ROWS, seq), dtype=np.int64)
+    sampler = StatefulDistributedSampler(
+        FLEET_ROWS, replica_rank=gid, num_replica_groups=groups, shuffle=True,
+        seed=spec["seed"])
+
+    def draw(n: int) -> list:
+        idx = []
+        while len(idx) < n:
+            if sampler.remaining == 0:
+                sampler.set_epoch(sampler.epoch + 1)
+            idx.append(next(iter(sampler)))
+        return idx
+
+    model = tf.init_params(torch.Generator().manual_seed(spec["seed"]), cfg, device)
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-4, betas=(0.9, 0.95),
+                            eps=1e-8, weight_decay=0.1)
+
+    def load_state_dict(sd):
+        model.load_state_dict(sd["model"])
+        opt.load_state_dict(sd["optim"])
+        sampler.load_state_dict(sd["sampler"])
+
+    pg = ProcessGroupBabyTCP(timeout=spec["pg_timeout"])
+    manager = Manager(
+        pg=pg, min_replica_size=1, load_state_dict=load_state_dict,
+        state_dict=lambda: {"model": model.state_dict(), "optim": opt.state_dict(),
+                            "sampler": sampler.state_dict()},
+        lighthouse_addr=os.environ["TORCHFT_LIGHTHOUSE"],
+        replica_id=f"fleet_group{gid}", group_rank=0, group_world_size=1,
+        use_async_quorum=False, timeout=spec["pg_timeout"],
+        quorum_timeout=spec["pg_timeout"], init_sync=False,
+    )
+    optim = OptimizerWrapper(manager, opt)
+    ddp = DistributedDataParallel(manager)
+    grad_step = tf.make_grad_step(cfg)
+    kernels = (fa.flash_fwd, fa.flash_bwd_kv, fa.flash_bwd_q)
+    twins = (fa.flash_fwd_plain, fa.flash_bwd_kv_plain, fa.flash_bwd_q_plain)
+    for fn in kernels:
+        fn.launches = 0
+    for fn in twins:
+        fn.calls = 0
+    if inc == 0:
+        # the fleet starts together: neither group commits a step before
+        # the other's first quorum (a late starter would heal instead)
+        def all_up() -> bool:
+            docs = [_read_json(os.path.join(d, f"g{g}_inc0.json")) for g in range(groups)]
+            return all(doc is not None and doc["status"] != "starting" for doc in docs)
+        hold("holding for the fleet to start", all_up)
+    rec["status"] = "training"
+    _write_json(path, rec)
+    killed_worker = held_step = False
+    try:
+        while manager.current_step() < steps:
+            phases0, stats0 = manager.phase_times(), dict(pg.stats)
+            t0 = time.perf_counter()
+            optim.zero_grad()  # the quorum: a restarted group heals here
+            t1 = time.perf_counter()
+            step = manager.current_step()
+            s = {"step": step, "quorum_id": manager._quorum_id, "t_quorum": time.time(),
+                 "worker_pid": pg.worker_pid()}
+            saved = sampler.state_dict()
+            tokens = torch.from_numpy(table[draw(batch)]).to(device)
+            loss, _ = grad_step(model, tokens)
+            sync()
+            t2 = time.perf_counter()
+            if gid == 0 and step == FLEET_WORKER_KILL_STEP and not held_step:
+                held_step = True
+                time.sleep(FLEET_HOLD_S)
+            t2h = time.perf_counter()
+            work = ddp.allreduce_gradients(module_grads(model))
+            if (gid == 1 and inc == 0 and step == FLEET_WORKER_KILL_STEP
+                    and not killed_worker):
+                killed_worker = True
+                s["worker_killed"] = pg.worker_pid()
+                os.kill(pg.worker_pid(), signal.SIGKILL)
+                s["t_worker_kill"] = time.time()
+            avg = work.wait(timeout=spec["pg_timeout"])
+            s["t_wait_done"] = time.time()
+            err = manager.errored()
+            committed = optim.step(model, avg)
+            sync()
+            t3 = time.perf_counter()
+            if not committed:  # the batch goes back: exact-once data
+                sampler.load_state_dict(saved)
+            phases = manager.phase_times()
+            st = pg.stats
+            s.update({
+                "committed": committed, "loss": float(loss), "t_commit": time.time(),
+                "error": repr(err) if err is not None else None,
+                "step_ms": (t3 - t0) * 1e3 - (t2h - t2) * 1e3,
+                "quorum_ms": (t1 - t0) * 1e3, "compute_ms": (t2 - t1) * 1e3,
+                "sync_ms": (t3 - t2h) * 1e3,
+                "phases_ms": {k: (phases.get(k, 0.0) - phases0.get(k, 0.0)) * 1e3
+                              for k in phases if phases.get(k, 0.0) > phases0.get(k, 0.0)},
+                "baby_ms": {k: (st[k] - stats0.get(k, 0.0)) * 1e3 for k in (
+                    "stage_in_s", "round_trip_s", "op_s", "stage_out_s", "wrap_s")},
+                "shm_in_bytes": st["shm_in_bytes"] - stats0.get("shm_in_bytes", 0),
+                "sampler": sampler.state_dict(),
+            })
+            if inc and "heal" not in rec and any(k in s["phases_ms"] for k in HEAL_PHASES):
+                info = manager.heal_info()
+                rec["heal"] = {"step": step, "mode": info.get("mode"),
+                               "sources": info.get("sources"),
+                               "wire_bytes": info.get("wire_bytes", 0),
+                               "phases_ms": {k: s["phases_ms"].get(k, 0.0)
+                                             for k in HEAL_PHASES}}
+            rec["steps"].append(s)
+            rec["launches"] = {fn.__name__: fn.launches for fn in kernels}
+            rec["twin_calls"] = {fn.__name__: fn.calls for fn in twins}
+            rec["shm_peak_bytes"] = st["shm_peak_bytes"]
+            _write_json(path, rec)
+            log(f"  fleet g{gid} inc{inc} " + json.dumps(
+                {k: s[k] for k in ("step", "committed", "quorum_id", "step_ms", "sync_ms",
+                                   "baby_ms", "error")}))
+            done = manager.current_step()
+            if committed and done == FLEET_LEADER_KILL_AFTER:
+                hold("holding for the leader kill",
+                     lambda: os.path.exists(os.path.join(d, "leader_killed")))
+            if committed and done == FLEET_TRAINER_KILL_AFTER:
+                if gid == 1 and inc == 0:
+                    hold("parked for the trainer kill", lambda: False)
+                if gid == 0:
+                    def restarted() -> bool:
+                        doc = _read_json(os.path.join(d, "g1_inc1.json"))
+                        return doc is not None and doc["status"] == "training"
+                    hold("holding for the restarted group", restarted)
+        rec["final_step"] = manager.current_step()
+        rec["worker"] = _proc_status(pg.worker_pid())
+        rec["host_rss_gb"] = host_rss_gb()
+        if on_card:
+            rec["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            rec["peak_reserved_gb"] = torch.cuda.max_memory_reserved() / 1e9
+        # kernel D over the Baby: an int8 allreduce of the last gradients,
+        # quantized on the card, against their f32 sum
+        grads = list(module_grads(model).values())
+        pq.quantize_int8.launches = 0
+        pq.quantize_int8_plain.calls = 0
+        exact = pg.allreduce(grads, "sum").wait(timeout=spec["pg_timeout"])
+        amax = torch.stack([g.detach().abs().max().float().cpu() for g in grads])
+        amax = pg.allreduce([amax], "max").wait(timeout=spec["pg_timeout"])[0]
+        t_q = time.perf_counter()
+        quant = allreduce_quantized(grads, "sum", pg, device_quantize=True).wait(
+            timeout=spec["pg_timeout"])
+        q_ms = (time.perf_counter() - t_q) * 1e3
+        host_q = [np.asarray(q.cpu() if isinstance(q, torch.Tensor) else q) for q in quant]
+        err = max(float(np.abs(q - np.asarray(e)).max()) for q, e in zip(host_q, exact))
+        # two int8 stages: each group's contribution rounded to half its
+        # row's scale (row absmax / 127), then the reduced piece again; a
+        # codec row may span leaves, so the bound takes the largest
+        # magnitude of any leaf
+        bound = (2 * float(amax.max()) + max(float(np.abs(np.asarray(e)).max())
+                                             for e in exact)) / 254 * 1.01
+        ratio = err / bound
+        rec["quantized"] = {
+            "digest": _digest(torch.cat([torch.from_numpy(q).reshape(-1) for q in host_q])),
+            "err_over_bound": ratio, "max_abs_err": err, "bound": bound, "ms": q_ms,
+            "launches": pq.quantize_int8.launches,
+            "twin_calls": pq.quantize_int8_plain.calls,
+        }
+        rec["digests"] = state_digests(model, opt)
+        rec["sampler_final"] = sampler.state_dict()
+        rec["status"] = "done"
+        _write_json(path, rec)
+    finally:
+        manager.shutdown()
+        pg.shutdown()  # the Manager leaves its PG to its owner
+
+
+def fleet_member() -> None:
+    """The entry of a phase-13 trainer process (``python3 -c "import
+    chip_smoke; chip_smoke.fleet_member()"``): its replica group from the
+    launcher's env triple, the rest of its spec from
+    ``TORCHFT_FLEET_SPEC``.  Exits 0 only when it trained to the end."""
+    code = 1
+    try:
+        spec = json.loads(os.environ["TORCHFT_FLEET_SPEC"])
+        _fleet_trainer(spec, int(os.environ["REPLICA_GROUP_ID"]),
+                       int(os.environ["NUM_REPLICA_GROUPS"]))
+        code = 0
+    except BaseException:  # noqa: BLE001 - the exit code carries it
+        traceback.print_exc()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(code)
+
+
+def _compute_apps() -> dict:
+    """The processes that hold a CUDA context on the card, as nvidia-smi
+    lists them (pids in the namespace nvidia-smi reads)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=30).stdout.strip()
+    pids = [line.split(",")[0].strip() for line in out.splitlines() if line.strip()]
+    return {"raw": out, "pids": [p for p in pids if p.isdigit()]}
+
+
+def _shm_used() -> int:
+    st = os.statvfs("/dev/shm")
+    return (st.f_blocks - st.f_bfree) * st.f_frsize
+
+
+def fleet_path(cfg=None, batch: int = 8, seq: int = 1024, device: str = "cuda",
+               steps: int = FLEET_STEPS, timeout: float = 900.0,
+               lease_ms: int = FLEET_LEASE_MS) -> "dict":
+    """Phase 13: three lighthouse peers (the port's CLI) and the port's
+    ``ReplicaGroupLauncher`` supervising two trainer processes
+    (:func:`fleet_member`), each the flagship over ``ProcessGroupBabyTCP``;
+    a Baby worker SIGKILLed mid-allreduce, the lighthouse leader SIGKILLed,
+    and group 1's trainer SIGKILLed and restarted.  ``cfg``/``batch``/
+    ``seq``/``device`` let a CPU rehearsal drive the same code at a tiny
+    size."""
+    import dataclasses
+    import shutil
+    import signal
+    import tempfile
+    import urllib.request
+
+    from torchft_tpu_torch.ha import format_endpoints, pick_free_ports
+    from torchft_tpu_torch.launcher import ReplicaGroupLauncher
+
+    t_start = time.perf_counter()
+    d = tempfile.mkdtemp(prefix="tft_fleet_")
+    cfg_fields = None
+    if cfg is not None:
+        cfg_fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+        for k in ("dtype", "param_dtype"):
+            if k in cfg_fields:
+                cfg_fields[k] = str(cfg_fields[k]).replace("torch.", "")
+    spec = {"dir": d, "device": device, "cfg": cfg_fields, "batch": batch, "seq": seq,
+            "steps": steps, "seed": FLEET_SEED, "timeout": timeout,
+            "pg_timeout": min(600.0, timeout)}
+    here = os.path.dirname(os.path.abspath(__file__))
+    ports = pick_free_ports(3)
+    endpoints = [f"127.0.0.1:{p}" for p in ports]
+    peers = [subprocess.Popen(
+        [sys.executable, "-m", "torchft_tpu_torch.lighthouse", "--bind", ep,
+         "--peers", format_endpoints(endpoints), "--lease-timeout-ms", str(lease_ms),
+         "--min-replicas", "1", "--join-timeout-ms", "500", "--quorum-tick-ms", "50",
+         "--heartbeat-timeout-ms", "5000"],
+        stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL) for ep in endpoints]
+
+    def leader(deadline_s: float = 60.0) -> int:
+        deadline = time.monotonic() + deadline_s
+        while time.monotonic() < deadline:
+            for i, p in enumerate(peers):
+                if p.poll() is not None:
+                    continue
+                with contextlib.suppress(Exception):
+                    with urllib.request.urlopen(
+                            f"http://{endpoints[i]}/status.json", timeout=2) as r:
+                        if json.load(r).get("ha", {}).get("is_leader"):
+                            return i
+            time.sleep(0.05)
+        raise TimeoutError("no lighthouse leader elected")
+
+    held_ports: list = []
+
+    def hold_port(port: int) -> None:
+        """Keep a dead peer's port bound (not listening) for the phase: the
+        live peers keep dialling it, and must not reach a process that
+        picks it up as an ephemeral port."""
+        import socket
+
+        s = socket.socket()
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        with contextlib.suppress(OSError):
+            s.bind(("127.0.0.1", port))
+            held_ports.append(s)
+
+    def heard_both(deadline_s: float) -> float:
+        """Wait until the leader lists fresh heartbeats from both groups;
+        returns the time it did."""
+        deadline = time.monotonic() + deadline_s
+        while time.monotonic() < deadline:
+            with contextlib.suppress(Exception):
+                i = leader(max(deadline - time.monotonic(), 0.1))
+                with urllib.request.urlopen(
+                        f"http://{endpoints[i]}/status.json?per_page=64", timeout=2) as r:
+                    beats = json.load(r).get("heartbeats", [])
+                fresh = {b["replica_id"].split(":")[0] for b in beats if not b["stale"]}
+                if {"fleet_group0", "fleet_group1"} <= fresh:
+                    return time.time()
+            time.sleep(0.05)
+        raise TimeoutError("the new lighthouse leader never heard both groups")
+
+    def incs() -> dict:
+        out = {}
+        for name in sorted(os.listdir(d)):
+            if name.endswith(".json") and name.startswith("g"):
+                doc = _read_json(os.path.join(d, name))
+                if doc is not None:
+                    out[name[:-5]] = doc
+        return out
+
+    env = {"TORCHFT_FLEET_SPEC": json.dumps(spec),
+           "PYTHONPATH": os.pathsep.join(
+               [here] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p])}
+    launcher = None
+    codes: dict = {}
+    events: dict = {}
+    shm0 = _shm_used()
+    st = os.statvfs("/dev/shm")
+    shm_size, shm_free = st.f_blocks * st.f_frsize, st.f_bavail * st.f_frsize
+    log(f"fleet path: /dev/shm holds {shm_size} B, {shm_free} B free")
+    shm_peak = 0
+    apps = None
+    try:
+        first_leader = leader()
+        launcher = ReplicaGroupLauncher(
+            [sys.executable, "-c", FLEET_TRAINER], replicas=2, max_restarts=1,
+            env=env, lighthouse_addr=format_endpoints(endpoints), restart_backoff=0.5)
+        runner = threading.Thread(
+            target=lambda: codes.update(launcher.run(timeout=timeout, poll_interval=0.1)),
+            name="fleet_launcher", daemon=True)
+        runner.start()
+        deadline = time.monotonic() + timeout + 30
+        while runner.is_alive():
+            assert time.monotonic() < deadline, "phase 13: the fleet ran past its deadline"
+            shm_peak = max(shm_peak, _shm_used() - shm0)
+            docs = incs()
+            g0, g10 = docs.get("g0_inc0"), docs.get("g1_inc0")
+            if ("leader" not in events and g0 and g10
+                    and g0["status"] == g10["status"] == "holding for the leader kill"):
+                if device == "cuda":
+                    apps = _compute_apps()
+                i = leader()
+                peers[i].send_signal(signal.SIGKILL)
+                peers[i].wait(timeout=30)
+                hold_port(ports[i])
+                events["leader"] = {"t": time.time(), "peer": i, "first_leader": first_leader}
+                # the groups go on once the new leader hears both: else the
+                # first to walk the list may form the quorum alone
+                both = heard_both(timeout)
+                events["leader"]["heard_both_s"] = both - events["leader"]["t"]
+                open(os.path.join(d, "leader_killed"), "w").close()
+                log(f"fleet path: lighthouse leader (peer {i}) SIGKILLed after commit "
+                    f"{FLEET_LEADER_KILL_AFTER}")
+            if ("trainer" not in events and g10
+                    and g10["status"] == "parked for the trainer kill"):
+                launcher.kill_replica(1, signal.SIGKILL)
+                events["trainer"] = {"t": time.time(), "pid": g10["pid"]}
+                log(f"fleet path: group 1's trainer (pid {g10['pid']}) SIGKILLed after "
+                    f"commit {FLEET_TRAINER_KILL_AFTER}")
+            time.sleep(0.1)
+        restarts = launcher.restarts()
+    finally:
+        if launcher is not None:
+            launcher.shutdown()
+        for p in peers:
+            if p.poll() is None:
+                p.kill()
+            p.wait(timeout=30)
+        for sock in held_ports:
+            sock.close()
+        docs = incs()
+        shutil.rmtree(d, ignore_errors=True)
+    wall = time.perf_counter() - t_start
+
+    # -- checks ------------------------------------------------------------
+    assert codes == {0: 0, 1: 0}, f"trainer exit codes {codes}"
+    assert restarts == {0: 0, 1: 1}, f"launcher restarts {restarts}"
+    assert sorted(docs) == ["g0_inc0", "g1_inc0", "g1_inc1"], sorted(docs)
+    assert "leader" in events and "trainer" in events, events
+    g0, g1k, g1 = docs["g0_inc0"], docs["g1_inc0"], docs["g1_inc1"]
+    for doc in (g0, g1):
+        assert doc["status"] == "done" and doc["final_step"] == steps, doc["status"]
+    assert g1k["status"] == "parked for the trainer kill", g1k["status"]
+    kill_step = FLEET_WORKER_KILL_STEP
+    for doc in (g0, g1k, g1):
+        for i, s in enumerate(doc["steps"]):
+            first_try = not any(p["step"] == s["step"] for p in doc["steps"][:i])
+            failed = s["step"] == kill_step and first_try and doc is not g1
+            assert s["committed"] == (not failed), (doc["group"], doc["incarnation"], s)
+            assert math.isfinite(s["loss"])
+    # the worker kill: neither trainer died, the op failed on the pipe's
+    # EOF (not a timeout), and the next quorum spawned fresh workers
+    bad = next(s for s in g1k["steps"] if "worker_killed" in s)
+    assert bad["step"] == kill_step and "worker exited" in (bad["error"] or ""), bad
+    fail_s = bad["t_wait_done"] - bad["t_worker_kill"]
+    assert fail_s < 30.0, f"the killed worker's op failed after {fail_s:.1f} s"
+    g0_bad = next(s for s in g0["steps"] if s["step"] == kill_step)
+    assert not g0_bad["committed"] and g0_bad["error"], g0_bad
+    rerun = [s for s in g1k["steps"] if s["step"] == kill_step and s["committed"]]
+    assert rerun and rerun[0]["worker_pid"] != bad["worker_pid"], (bad, rerun)
+    g0_rerun = [s for s in g0["steps"] if s["step"] == kill_step and s["committed"]]
+    assert g0_rerun[0]["worker_pid"] != g0_bad["worker_pid"]
+    # the leader kill: quorum ids stay strictly increasing, and the next
+    # quorum carries the new leader's term
+    t_leader = events["leader"]["t"]
+    for doc in (g0, g1k, g1):
+        ids = [s["quorum_id"] for s in doc["steps"]]
+        assert ids == sorted(ids), (doc["group"], ids)
+    before = max(s["quorum_id"] for s in g0["steps"] if s["t_quorum"] < t_leader)
+    after = [s for doc in (g0, g1k) for s in doc["steps"] if s["t_quorum"] > t_leader]
+    assert after and min(s["quorum_id"] for s in after) > before
+    assert (min(s["quorum_id"] for s in after) >> 32) > (before >> 32), (before, after[0])
+    # the trainer kill: the restarted group healed live from group 0 and
+    # trained to the end, bitwise equal to it
+    heal = g1.get("heal")
+    assert heal and heal["step"] == FLEET_TRAINER_KILL_AFTER and heal["wire_bytes"] > 0, heal
+    bad_leaves = [n for n in g0["digests"] if g1["digests"].get(n) != g0["digests"][n]]
+    assert not bad_leaves and len(g0["digests"]) == len(g1["digests"]), bad_leaves[:5]
+    assert g0["sampler_final"] == g1["sampler_final"], (g0["sampler_final"], g1["sampler_final"])
+    # kernel D over the Baby: both groups bit for bit, within the codec's bound
+    assert g0["quantized"]["digest"] == g1["quantized"]["digest"]
+    for doc in (g0, g1):
+        assert doc["quantized"]["err_over_bound"] <= 1.0, doc["quantized"]
+    # no Baby worker holds the card (a CUDA context keeps /dev/nvidia*
+    # open; importing torch maps libcuda without one); nothing of the
+    # phase stays in /dev/shm
+    for doc in (g0, g1):
+        w = doc["worker"]
+        assert w.get("nvidia_fds") == 0, w
+    from torchft_tpu_torch.parallel.process_group import _shm_owner_prefix
+
+    owners = tuple(_shm_owner_prefix(doc["pid"]) for doc in (g0, g1k, g1))
+    left = [n for n in os.listdir("/dev/shm") if n.startswith(owners)]
+    assert not left, f"/dev/shm holds the fleet's segments {left}"
+    if apps is not None:
+        listed = {int(p) for p in apps.get("pids", [])}
+        workers = {s["worker_pid"] for doc in (g0, g1k) for s in doc["steps"]}
+        assert not (listed & workers), f"Baby workers hold a CUDA context: {apps}"
+
+    # -- numbers -----------------------------------------------------------
+    rerun1 = rerun[0]
+    first_new = next(s for s in g1["steps"] if s["committed"])
+    t_trainer = events["trainer"]["t"]
+    survivor = [s for s in g0["steps"] if s["committed"] and s["step"] not in (
+        0, kill_step, FLEET_TRAINER_KILL_AFTER)]
+
+    def med(fn):
+        vals = [fn(s) for s in survivor]
+        return statistics.median(vals) if vals else None
+
+    split = {k: med(lambda s, k=k: s["baby_ms"][k]) for k in (
+        "stage_in_s", "round_trip_s", "op_s", "stage_out_s", "wrap_s")}
+    split["h2d_and_rest"] = med(lambda s: s["sync_ms"] - s["baby_ms"]["stage_in_s"]
+                                - s["baby_ms"]["round_trip_s"] - s["baby_ms"]["wrap_s"])
+    launches = {f"g{doc['group']}_inc{doc['incarnation']}": doc["launches"]
+                for doc in (g0, g1k, g1)}
+    names = g0["launches"]
+    return {
+        "layers": _fleet_cfg(spec).n_layers, "batch": batch, "seq": seq, "steps": steps,
+        "codes": codes, "restarts": restarts,
+        "median_step_ms": med(lambda s: s["step_ms"]),
+        "median_ms": {"compute": med(lambda s: s["compute_ms"]),
+                      "sync": med(lambda s: s["sync_ms"]),
+                      "quorum": med(lambda s: s["quorum_ms"]),
+                      "ring_phase": med(lambda s: s["phases_ms"].get("ring", 0.0))},
+        "baby_split_ms": split,
+        "shm_in_bytes_per_step": med(lambda s: s["shm_in_bytes"]),
+        "shm_bytes": {"size": shm_size, "free_at_start": shm_free},
+        "shm_peak_bytes": {"sampled": shm_peak,
+                           "by_pg": {f"g{doc['group']}": doc["shm_peak_bytes"]
+                                     for doc in (g0, g1)}},
+        "worker_kill": {"fail_s": fail_s, "to_next_commit_s":
+                        rerun1["t_commit"] - bad["t_worker_kill"],
+                        "error": bad["error"], "peer_error": g0_bad["error"]},
+        "leader_kill": {"to_next_quorum_s": min(s["t_quorum"] for s in after) - t_leader,
+                        "quorum_ids": [before, min(s["quorum_id"] for s in after)]},
+        "trainer_kill": {"to_first_commit_s": first_new["t_commit"] - t_trainer,
+                         "heal": heal, "restart_to_training_s": g1["t_start"] - t_trainer},
+        "pg_configure_ms": {f"g{doc['group']}_inc{doc['incarnation']}": [
+            round(s["phases_ms"].get("pg_configure", 0.0), 1) for s in doc["steps"]
+            if "pg_configure" in s["phases_ms"]] for doc in (g0, g1k, g1)},
+        "workers": {f"g{doc['group']}": doc["worker"] for doc in (g0, g1)},
+        "host_rss_gb": {f"g{doc['group']}": doc["host_rss_gb"] for doc in (g0, g1)},
+        "peak_memory_gb": {f"g{doc['group']}": doc.get("peak_memory_gb") for doc in (g0, g1)},
+        "quantized": {f"g{doc['group']}": doc["quantized"] for doc in (g0, g1)},
+        "launches": {n: sum(c[n] for c in launches.values()) for n in names},
+        "launches_by_incarnation": launches,
+        "twin_calls": {n: sum(doc["twin_calls"][n] for doc in (g0, g1k, g1))
+                       for n in g0["twin_calls"]},
+        "compute_apps": apps,
+        "steps": [dict(s, group=doc["group"], incarnation=doc["incarnation"])
+                  for doc in (g0, g1k, g1) for s in doc["steps"]],
+        "wall_s": wall,
+    }
+
+
+def log_fleet(card: str, fsum: dict, tcp_step_ms: "float | None") -> None:
+    """Phase 13's numbers, each line beside the card's name and power limit."""
+    m, b = fsum["median_ms"], fsum["baby_split_ms"]
+    log(f"{card} | fleet path (2 trainer processes, {fsum['layers']} layers, "
+        f"B={fsum['batch']} T={fsum['seq']}, ProcessGroupBabyTCP): median survivor step "
+        f"{fsum['median_step_ms']:.1f} ms (main path's ProcessGroupTCP step in this run "
+        f"{tcp_step_ms} ms) = quorum {m['quorum']:.1f} + compute {m['compute']:.1f} + "
+        f"allreduce and optimizer {m['sync']:.1f} ms (Manager ring phase "
+        f"{m['ring_phase']:.1f} ms)")
+    log(f"{card} | fleet path Baby allreduce split (ms, median): device to /dev/shm "
+        f"(one copy) {b['stage_in_s']:.1f}, pipe send to reply {b['round_trip_s']:.1f} "
+        f"(of it the worker's TCP ring {b['op_s']:.1f} and its staging out "
+        f"{b['stage_out_s']:.1f}), result mapping {b['wrap_s']:.1f}, the rest (the "
+        f"Manager's average and host to device, the commit vote, AdamW) "
+        f"{b['h2d_and_rest']:.1f}; "
+        f"{fsum['shm_in_bytes_per_step']} B staged in a step; /dev/shm "
+        + json.dumps(fsum["shm_bytes"]) + ", peak use " + json.dumps(fsum["shm_peak_bytes"]))
+    log(f"{card} | fleet path Baby workers: pg_configure (spawn, import, rendezvous) ms "
+        + json.dumps(fsum["pg_configure_ms"]) + "; at the end "
+        + json.dumps(fsum["workers"]) + "; nvidia-smi compute apps "
+        + json.dumps(fsum["compute_apps"]))
+    wk, lk, tk = fsum["worker_kill"], fsum["leader_kill"], fsum["trainer_kill"]
+    log(f"{card} | fleet path faults: worker SIGKILL -> op failed {wk['fail_s']:.2f} s "
+        f"({wk['error']}; the peer: {wk['peer_error']}), -> next commit "
+        f"{wk['to_next_commit_s']:.1f} s; leader SIGKILL -> next quorum "
+        f"{lk['to_next_quorum_s']:.1f} s (quorum ids {lk['quorum_ids']}); trainer "
+        f"SIGKILL -> restarted process training {tk['restart_to_training_s']:.1f} s, -> its "
+        f"first commit {tk['to_first_commit_s']:.1f} s, heal " + json.dumps(tk["heal"]))
+    log(f"{card} | fleet path memory: host GB {json.dumps(fsum['host_rss_gb'])}, device "
+        f"peak GB {json.dumps(fsum['peak_memory_gb'])}; int8 allreduce over the Baby "
+        + json.dumps(fsum["quantized"]) + f"; phase wall {fsum['wall_s']:.1f} s")
+    log(f"{card} | fleet path kernel launches in its training steps "
+        f"{json.dumps(fsum['launches'])} (by incarnation "
+        f"{json.dumps(fsum['launches_by_incarnation'])})")
+
+
 def main() -> int:
     try:
         import torch
@@ -3791,6 +4496,7 @@ def main() -> int:
         f"2 x (lse, delta)) {(2 * 64 + 4 * 64) * dp * 2 + 2 * 64 * 64 * 2 + 4 * 64 * 4} B, "
         f"C (Q, dO, 2 x (K, V)) {(2 * 128 + 4 * 32) * dp * 2} B")
 
+    log(f"the script at {time.monotonic() - T_START:.1f} s before the kernel checks")
     kernels = check_kernels()
     # B and C together do the work of SDPA's one backward call (dK and dV,
     # dQ): the pair is what compares with it
@@ -3827,13 +4533,17 @@ def main() -> int:
     def drive(path) -> "tuple":
         """Run one main path with every count at 0; its launches and twin
         calls, read just after."""
-        log(f"host memory before {path.__name__}: {release_host_memory():.2f} GB resident")
+        log(f"host memory before {path.__name__}: {release_host_memory():.2f} GB resident; "
+            f"the script at {time.monotonic() - T_START:.1f} s")
         for fn in counters:
             fn.launches = 0
         for fn in twins:
             fn.calls = 0
+        t0 = time.monotonic()
         summary = path()
-        log(f"host memory after {path.__name__}: {host_rss_gb():.2f} GB resident")
+        t1 = time.monotonic()
+        log(f"host memory after {path.__name__}: {host_rss_gb():.2f} GB resident; "
+            f"{t1 - t0:.1f} s of wall, the script at {t1 - T_START:.1f} s")
         return (summary, {name: fn.launches for fn, name in counters.items()},
                 {fn.__name__: fn.calls for fn in twins})
 
@@ -3992,6 +4702,25 @@ def main() -> int:
     log_pp(card, ppsum)
     log(f"pp path on {card}: " + json.dumps(ppsum))
 
+    # phase 13's kernels launch in its trainer processes: A, B and C in
+    # their training steps, D in the int8 allreduce after the last commit
+    fsum, fl_parent, fl_parent_twins = drive(fleet_path)
+    fl_launches = dict(fsum["launches"])
+    fl_launches["quant_int8"] = sum(q["launches"] for q in fsum["quantized"].values())
+    log(f"fleet path launches {fl_launches} in its trainers (the parent {fl_parent}); "
+        f"plain twin calls {fsum['twin_calls']} (the parent {fl_parent_twins})")
+    assert all(fl_launches[k] > 0 for k in (
+        "flash_fwd", "flash_bwd_kv", "flash_bwd_q", "quant_int8")), fl_launches
+    # every incarnation, the killed one too, launched A, B and C
+    assert all(n > 0 for c in fsum["launches_by_incarnation"].values()
+               for n in c.values()), fsum["launches_by_incarnation"]
+    assert all(q["launches"] > 0 and q["twin_calls"] == 0
+               for q in fsum["quantized"].values()), fsum["quantized"]
+    assert all(n == 0 for n in fsum["twin_calls"].values()), fsum["twin_calls"]
+    assert all(n == 0 for n in fl_parent_twins.values()), fl_parent_twins
+    log_fleet(card, fsum, summary.get("median_step_ms"))
+    log(f"fleet path on {card}: " + json.dumps(fsum))
+
     sources = {
         "flash_fwd": ("torchft_tpu_torch/csrc/flash_fwd.cu",
                       "torchft_tpu/ops/flash_attention.py:67"),
@@ -4010,15 +4739,16 @@ def main() -> int:
     for part in ("max_abs", "times", "bounds", "library"):
         checks[part] = {**kernels[part], **quant[part]}
     # launches: the DDP, heal, DiLoCo, cold-restore, reshard, MoE serving,
-    # cp, HSDP and pp paths' runs together (each counted from 0; the cp,
-    # HSDP and pp paths' in the training steps of their processes, without
-    # the step-0 references and planted faults); E and F have no caller on any
+    # cp, HSDP, pp and fleet paths' runs together (each counted from 0; the
+    # cp, HSDP, pp and fleet paths' in the training steps of their
+    # processes, without the step-0 references and planted faults, the
+    # fleet's D in its trainers' int8 allreduce); E and F have no caller on any
     record = {"kernels": [
         {
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": sum(run.get(name, 0) for run in (
                 launches, h_launches, d_launches, c_launches, r_launches,
-                m_launches, cp_launches, hd_launches, pp_launches)),
+                m_launches, cp_launches, hd_launches, pp_launches, fl_launches)),
             "max_abs_err": checks["max_abs"][name],
             "ms": checks["times"][name][0],
             "plain_ms": checks["times"][name][1],

@@ -122,9 +122,9 @@ def test_hsdp_path_rehearsal_on_cpu():
     processes (two groups x fsdp 2 x tp 2), a Manager per process, 1 KV
     head that tp = 2 does not divide (the flagship's case); group 1 is
     SIGKILLed after its second commit, restarted, and heals rank by rank.
-    The path itself asserts six commits everywhere, the heal at the
-    survivors' step, the step-0 checks and the planted fault caught, and
-    rank r of both groups bitwise equal."""
+    The path itself asserts ``HSDP_STEPS`` commits everywhere, the heal at
+    the survivors' step, the step-0 checks and the planted fault caught,
+    and rank r of both groups bitwise equal."""
     cfg = tf.TransformerConfig(
         vocab_size=256, d_model=64, n_heads=2, n_kv_heads=1, d_ff=128,
         n_layers=2, max_seq_len=128, dtype=torch.float32, remat=True,
@@ -132,8 +132,10 @@ def test_hsdp_path_rehearsal_on_cpu():
     )
     summary = chip_smoke.hsdp_path(cfg, batch=4, seq=128, device="cpu", timeout=120.0)
     assert summary["processes"] == 8
-    # group 0: 6 steps x 4 ranks; the restarted group 1: steps 2..5 x 4
-    assert len(summary["steps"]) == 24 + 16
+    # group 0: every step x 4 ranks; the restarted group 1: from the
+    # kill's step on, x 4
+    steps, kill = chip_smoke.HSDP_STEPS, chip_smoke.HSDP_KILL_AFTER
+    assert len(summary["steps"]) == 4 * steps + 4 * (steps - kill)
     assert summary["params_per_rank"] == sum(
         p.numel() for p in tf.Transformer(cfg, "cpu").parameters()
         if p.dim() > 1) // 4 + (2 * 2 + 1) * 64
@@ -258,7 +260,7 @@ def test_reshard_path_rehearsal_on_cpu():
 
 def test_moe_serve_path_rehearsal_on_cpu():
     """The MoE serving phase at a tiny f32 size: two groups train a 2-layer,
-    4-expert MoE transformer for 6 steps; group 0 publishes every committed
+    4-expert MoE transformer for 5 steps; group 0 publishes every committed
     step into a root-then-leaf relay chain; the root dies once the leaf
     serves v3.  The path asserts that every fetched version's parameters
     and eval logits equal group 0's record bitwise, that the last version
@@ -270,16 +272,16 @@ def test_moe_serve_path_rehearsal_on_cpu():
     summary = chip_smoke.moe_serve_path(cfg, batch=1, seq=128, device="cpu",
                                         failover_s=0.2)
     fetches = summary["fetches"]
-    assert len(fetches) >= 3 and fetches[-1]["version"] == 6
+    assert len(fetches) >= 3 and fetches[-1]["version"] == 5
     assert fetches[0]["mode"] == "whole" and {f["mode"] for f in fetches[1:]} == {"delta"}
     assert summary["relay_failovers"] >= 1
-    assert len(summary["losses"]) == 12
-    assert len(summary["aux"]) == 6 and all(a > 0 for a in summary["aux"])
+    assert len(summary["losses"]) == 10
+    assert len(summary["aux"]) == 5 and all(a > 0 for a in summary["aux"])
     assert all(len(d) == 2 and all(0 <= x <= 1 for x in d) for d in summary["dropped"])
     assert set(summary["publishes"]) >= {1, 2, 3}
-    # 2 groups x 6 steps x 2 layers, each a forward and its recompute; the
+    # 2 groups x 5 steps x 2 layers, each a forward and its recompute; the
     # eval forwards of group 0's records and the client's fetches on top
-    assert fa.flash_fwd_plain.calls - before >= 2 * 6 * 2 * 2 + 2 * (6 + 3)
+    assert fa.flash_fwd_plain.calls - before >= 2 * 5 * 2 * 2 + 2 * (5 + 3)
     assert "TORCHFT_SERVING_FAILOVER_S" not in os.environ
 
 
@@ -287,14 +289,14 @@ def test_moe_serve_path_rehearsal_on_cpu():
 PHASES = (
     "Device", "Kernel check", "Main path", "Heal path", "Quantization kernels",
     "DiLoCo path", "Cold restore", "Reshard", "MoE serving", "Context parallelism",
-    "HSDP", "Pipeline and expert parallelism",
+    "HSDP", "Pipeline and expert parallelism", "Supervised fleet",
 )
 
 
 def test_the_phase_list_and_the_pp_summary_keys_are_pinned():
-    """The script's phases 1-12 in order, ``main`` driving the twelve paths'
+    """The script's phases 1-13 in order, ``main`` driving the paths'
     functions in that order, and the keys of phase 12's summary that
-    ``log_pp`` and ``main`` read."""
+    ``log_pp`` and ``main`` read; phase 13's constants and trainer entry."""
     import inspect
     import re
 
@@ -306,18 +308,25 @@ def test_the_phase_list_and_the_pp_summary_keys_are_pinned():
     src = inspect.getsource(chip_smoke.main)
     paths = re.findall(r"= drive\((\w+)\)", src)
     assert paths == ["main_path", "heal_path", "diloco_path", "cold_restore_path",
-                     "reshard_path", "moe_serve_path", "cp_path", "hsdp_path", "pp_path"]
-    assert "pp_launches))" in src  # phase 12's launches join the kernels' record
+                     "reshard_path", "moe_serve_path", "cp_path", "hsdp_path", "pp_path",
+                     "fleet_path"]
+    # phases 12's and 13's launches join the kernels' record
+    assert "pp_launches, fl_launches))" in src
+    assert (chip_smoke.FLEET_STEPS, chip_smoke.FLEET_WORKER_KILL_STEP,
+            chip_smoke.FLEET_LEADER_KILL_AFTER, chip_smoke.FLEET_TRAINER_KILL_AFTER) == (
+                10, 3, 4, 6)
+    assert chip_smoke.FLEET_TRAINER == "import chip_smoke; chip_smoke.fleet_member()"
+    assert "log_fleet(card, fsum" in src
     assert chip_smoke.PP_INNER == {"pp": 2, "ep": 2} and chip_smoke.PP_MICROBATCHES == 4
-    assert chip_smoke.moe_config().n_layers == 4 and chip_smoke.moe_config().d_model == 1536
+    assert chip_smoke.moe_config().n_layers == 2 and chip_smoke.moe_config().d_model == 1536
 
 
 def test_pp_path_rehearsal_on_cpu():
     """Phase 12 at a tiny f32 size through the same spawn code: eight
     processes (two groups x pp 2 x ep 2), a 2-layer 4-expert MoE model in 4
     microbatches; group 1 is SIGKILLed after its second commit, restarted,
-    and heals rank by rank.  The path itself asserts six commits everywhere,
-    the heal at the survivors' step, the step-0 checks (f32 here: the pp x
+    and heals rank by rank.  The path itself asserts ``PP_STEPS`` commits
+    everywhere, the heal at the survivors' step, the step-0 checks (f32 here: the pp x
     ep model and the one-device model agree to rounding), both planted
     faults caught, and rank r of both groups bitwise equal."""
     cfg = tf.TransformerConfig(
@@ -327,7 +336,8 @@ def test_pp_path_rehearsal_on_cpu():
     )
     summary = chip_smoke.pp_path(cfg, batch=8, seq=128, device="cpu", timeout=150.0)
     assert summary["processes"] == 8 and summary["bubble"] == 0.2
-    assert len(summary["steps"]) == 24 + 16
+    steps, kill = chip_smoke.PP_STEPS, chip_smoke.PP_KILL_AFTER
+    assert len(summary["steps"]) == 4 * steps + 4 * (steps - kill)
     # a rank: its stage's block (4 of 8 expert matrices each: 2 of 4
     # experts) beside the whole embedding and final norm
     block = sum(p.numel() for n, p in tf.Transformer(cfg, "cpu").named_parameters()

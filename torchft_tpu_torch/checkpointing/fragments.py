@@ -1085,12 +1085,15 @@ class StripeError(ConnectionError):
 class _Stripe:
     """One source's live state inside a striped fetch."""
 
-    __slots__ = ("base", "alive", "is_primary")
+    __slots__ = ("base", "alive", "is_primary", "first")
 
     def __init__(self, base: str, is_primary: bool) -> None:
         self.base = base
         self.alive = True
         self.is_primary = is_primary
+        # the fragment this source fetches before it takes from the
+        # shared queue (its round-robin slot of the stripe plan)
+        self.first: "Optional[str]" = None
 
 
 def striped_fetch(
@@ -1116,8 +1119,9 @@ def striped_fetch(
     ``sources[0]`` is the PRIMARY (the quorum-assigned heal source —
     the one whose manifest defines truth); the rest are max-step quorum
     peers whose state is bitwise-replicated, so any fragment they serve
-    must hash to the primary's digest.  Work assignment is dynamic (a
-    shared work queue, ``parallel`` concurrent fetches per source):
+    must hash to the primary's digest.  Source i opens with fragment i;
+    after that, work assignment is dynamic (a shared work queue,
+    ``parallel`` concurrent fetches per source):
     faster uplinks finish more fragments, a dead/slow/poisoned source's
     fragments fail over to the survivors, and the fetch only fails when
     EVERY source has been exhausted for some fragment.
@@ -1143,13 +1147,20 @@ def striped_fetch(
         parallel = env_int("TORCHFT_HEAL_PARALLEL", 2, minimum=1)
     stripes = [_Stripe(s, i == 0) for i, s in enumerate(sources)]
     frag_index = {name: i for i, name in enumerate(names)}
+    # Each source opens with its own round-robin fragment, the rest go to
+    # the shared queue.  Left to the queue alone, the first stripe threads
+    # to run on a loaded host can drain every fragment before a later
+    # source's thread is scheduled: the heal then never stripes, and a
+    # dead source is never tried (so never failed over).
+    for stripe, name in zip(stripes, names):
+        stripe.first = name
 
     # Shared state, all guarded by ``cv``: the dynamic work queue (a
     # requeued fragment lands at the FRONT — it is the oldest debt), the
     # completed set, completed results awaiting the consumer, and the
     # last per-source error (the failure chain when everything dies).
     cv = threading.Condition()
-    work: "deque[str]" = deque(names)
+    work: "deque[str]" = deque(names[len(stripes):])
     done: "Set[str]" = set()
     out_q: "deque[Tuple[str, np.ndarray, str, Tuple[float, float]]]" = deque()
     last_err: "List[BaseException]" = []
@@ -1169,6 +1180,9 @@ def striped_fetch(
         stripe.alive = False
         inflight -= 1
         work.appendleft(name)
+        if stripe.first is not None:
+            work.appendleft(stripe.first)
+            stripe.first = None
         last_err.append(e)
         if _alive_locked() > 0:
             failovers += 1
@@ -1188,6 +1202,10 @@ def striped_fetch(
                 while True:
                     if stopped or not stripe.alive or len(done) >= len(names):
                         return
+                    if stripe.first is not None:
+                        name, stripe.first = stripe.first, None
+                        inflight += 1
+                        break
                     if work:
                         name = work.popleft()
                         inflight += 1

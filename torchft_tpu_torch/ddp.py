@@ -17,6 +17,7 @@ from torch import nn
 
 from torchft_tpu_torch.manager import Manager
 from torchft_tpu_torch.parallel.work import Work
+from torchft_tpu_torch.utils.pytree import tree_flatten, tree_unflatten
 
 
 def module_grads(module: nn.Module) -> "Dict[str, torch.Tensor]":
@@ -46,3 +47,20 @@ class DistributedDataParallel:
         """Average a gradient pytree (a dict from parameter name to
         gradient) over the live quorum in one fused op."""
         return self._manager.allreduce(grads, should_quantize=self._should_quantize)
+
+
+class PureDistributedDataParallel:
+    """Naive per-leaf allreduce (reference ddp.py:82-105; the JAX package's
+    ``ddp.py:54-64``): one ``Manager.allreduce`` per gradient, over a
+    ``{name: grad}`` dict (:func:`module_grads`) or any pytree of tensors.
+    Simpler to reason about, one collective per parameter — for tests and
+    small models.  Returns the averaged gradients in the same structure,
+    each on its own device."""
+
+    def __init__(self, manager: Manager) -> None:
+        self._manager = manager
+
+    def allreduce_gradients(self, grads: Any) -> Any:
+        leaves, treedef = tree_flatten(grads)
+        works = [self._manager.allreduce(leaf) for leaf in leaves]
+        return tree_unflatten(treedef, [w.wait() for w in works])

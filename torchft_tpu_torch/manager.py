@@ -364,9 +364,8 @@ class Manager:
         store.close()
 
         self._logger = ReplicaLogger(self, self._replica_id, self._group_rank)
-        # Opt-in per-manager scrape endpoint (TORCHFT_METRICS_PORT);
-        # process-wide singleton, so multi-manager tests don't fight.
-        metrics.maybe_serve_from_env()
+        # The process-wide scrape endpoint (TORCHFT_METRICS_PORT) starts
+        # once, at package import (torchft_tpu_torch/__init__.py).
         # Metric labels use the STABLE replica id (the prefix before the
         # ':<uuid>' incarnation suffix): every restart would otherwise mint
         # a fresh label value, growing the process-wide registry without
@@ -1237,6 +1236,14 @@ class Manager:
                 "disks": len(plan[1]),
             }
             version, sources = plan
+            # The cut fixes which disks hold the version; which one is
+            # fetched as the primary is this replica's choice: its own
+            # disk when that is complete.  A peer's disk as the primary
+            # fails the restore if the peer exits mid-restore (the primary
+            # is retried for the whole deadline, never failed over), while
+            # the own disk stays up as long as this replica runs.
+            if own in sources and catalogs[own][version].get("complete"):
+                sources = [own] + [b for b in sources if b != own]
             self._logger.info(
                 f"cold restore: selected spilled v{version} across "
                 f"{len(sources)} disk(s)"

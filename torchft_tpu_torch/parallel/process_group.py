@@ -27,14 +27,21 @@ move data without reducing it (``broadcast``, ``allgather``, ``alltoall``,
 ``sendrecv``, ``send``, ``recv``) carry a bf16 tensor as its 16-bit
 patterns, never converted: a uint16 view (:class:`_BF16Bits`) that the
 wire header names ``bfloat16``, as the JAX package names an ``ml_dtypes``
-bf16 array, and that comes back out as a CPU bf16 tensor.  The
-subprocess-isolated ``ProcessGroupBabyTCP`` of the JAX package is not
-ported yet.
+bf16 array, and that comes back out as a CPU bf16 tensor.
+
+``ProcessGroupBabyTCP`` runs a ``ProcessGroupTCP`` in a spawned worker
+process (crash isolation: a wedged or crashed collective takes the worker
+down, not the trainer).  Its leaves cross to the worker through
+``/dev/shm`` (or the pipe, when small) with the bf16 mark kept, and its
+results are ``ProcessGroupTCP``'s, bit for bit.
 """
 
 from __future__ import annotations
 
+import collections
 import logging
+import mmap
+import os
 import pickle
 import queue
 import socket
@@ -42,6 +49,7 @@ import struct
 import threading
 import time
 import uuid
+import weakref
 import concurrent.futures as concurrent_futures
 from abc import ABC, abstractmethod
 from concurrent.futures import Future
@@ -1658,3 +1666,1047 @@ class ManagedProcessGroup(ProcessGroup):
 
     def recv(self, src: int, tag: int = 0, out: "Optional[np.ndarray]" = None) -> Work:
         return failed_work(RuntimeError("ManagedProcessGroup only supports allreduce"))
+
+
+# ---------------------------------------------------------------------------
+# Subprocess-isolated ("Baby") process groups
+# ---------------------------------------------------------------------------
+
+# Arrays >= this cross the parent<->worker boundary as POSIX shared-memory
+# segments instead of pickled pipe bytes: the pipe path costs two full
+# serializations plus 2x the payload in 64 KiB pipe writes per direction
+# (reference streams tensors with backpressure instead of pickling,
+# torchft/process_group.py:1602-1645).
+_SHM_MIN_BYTES = 1 << 20
+
+# How much longer than the PG timeout the parent waits for a new worker's
+# configure ack: the worker first has to start (spawn, import torch).
+_SPAWN_GRACE_S = 30.0
+
+# Every segment a Baby PG stages is named ``tftb_<pid ns>_<pid>_...``
+# after the process that owns the op (the parent, also for its worker's
+# result segments) and its pid namespace, so the segments of a process
+# that died mid-op can be found and unlinked by the next Baby PG that
+# configures in the same namespace.  /dev/shm may be shared with other
+# pid namespaces, where a pid means another process: their segments are
+# never touched.
+_SHM_PREFIX = "tftb_"
+_SHM_DIR = "/dev/shm"
+
+# Segments are mapped with their pages populated up front: one call
+# instead of a page fault per 4 KiB page on the first write (parent) or
+# read (worker), which dominates the first op after a reconfigure, when
+# every segment is new, where faults are costly (a sandboxed kernel).
+_SHM_MAP_FLAGS = mmap.MAP_SHARED | getattr(mmap, "MAP_POPULATE", 0)
+
+
+def _read_pid_ns() -> str:
+    """This process's pid namespace (the inode of ``/proc/self/ns/pid``),
+    or "" where it cannot be read."""
+    try:
+        return str(os.stat("/proc/self/ns/pid").st_ino)
+    except OSError:
+        return ""
+
+
+_PID_NS = _read_pid_ns()
+
+
+def _shm_owner_prefix(owner_pid: int) -> str:
+    """The name prefix of every segment whose op ``owner_pid`` owns."""
+    return f"{_SHM_PREFIX}{_PID_NS or '0'}_{owner_pid}_"
+
+
+def _shm_name(owner_pid: int, tag: str) -> str:
+    return f"{_shm_owner_prefix(owner_pid)}{tag}_{uuid.uuid4().hex[:16]}"
+
+
+def _pid_alive(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    except PermissionError:
+        return True
+    return True
+
+
+def _shm_sweep_dead() -> int:
+    """Unlink the Baby segments of processes of this pid namespace that no
+    longer run (a trainer SIGKILLed mid-op leaves its staged payloads
+    behind: the tmpfs holds them until someone unlinks the names).
+    Returns the count removed; sweeps nothing where the namespace cannot
+    be read."""
+    if not _PID_NS:
+        return 0
+    try:
+        names = os.listdir(_SHM_DIR)
+    except OSError:
+        return 0
+    ours = f"{_SHM_PREFIX}{_PID_NS}_"
+    removed = 0
+    for name in names:
+        if not name.startswith(ours):
+            continue
+        try:
+            pid = int(name[len(ours):].split("_", 1)[0])
+        except ValueError:
+            continue
+        if _pid_alive(pid):
+            continue
+        try:
+            os.unlink(os.path.join(_SHM_DIR, name))
+            removed += 1
+        except OSError:
+            pass
+    return removed
+
+
+def _shm_check_room(nbytes: int, what: str) -> None:
+    """Fail before staging more than ``/dev/shm`` holds.
+
+    A full tmpfs does not fail a segment's creation (``ftruncate`` makes
+    it sparse): the first write past the tmpfs's capacity raises SIGBUS,
+    which kills the process.  So the free space is read
+    first, and an op that would not fit fails with this error (there is
+    no quiet fallback to the pipe)."""
+    if nbytes <= 0:
+        return
+    try:
+        st = os.statvfs(_SHM_DIR)
+    except OSError:
+        return  # no /dev/shm to read: shm_open picks its own backing
+    free = st.f_bavail * st.f_frsize
+    if nbytes > free:
+        raise RuntimeError(
+            f"baby PG: staging {nbytes} bytes for {what} needs more than "
+            f"the {free} bytes free in {_SHM_DIR} (size "
+            f"{st.f_blocks * st.f_frsize}); a write past a full tmpfs "
+            f"kills the process with SIGBUS — enlarge {_SHM_DIR} or "
+            f"stage less per op"
+        )
+
+
+def _shm_mark(a: np.ndarray) -> bool:
+    """Whether a staged array is a bf16 tensor's bit patterns
+    (:class:`_BF16Bits`): the mark its ref carries across, without which
+    the worker would reduce the patterns as integers."""
+    return isinstance(a, _BF16Bits)
+
+
+class _Seg:
+    """One POSIX shared-memory segment, mapped with ``mmap``.
+
+    Not ``multiprocessing.shared_memory``: its resource tracker is shared
+    by the parent and its spawned workers and cannot be balanced across
+    them, and its ``close()`` unmaps pages that numpy views derived from
+    the mapping still point at (a view of a view keeps only the buffer
+    object alive, not the export).  Here the mapping is never closed
+    under a view: a mapping handed to numpy is unmapped when the last
+    array over it is collected, and the name is unlinked explicitly by
+    whoever owns the op."""
+
+    __slots__ = ("name", "size", "mm")
+
+    def __init__(self, name: str, size: int, mm: Any) -> None:
+        self.name = name
+        self.size = size
+        self.mm = mm
+
+    @classmethod
+    def create(cls, nbytes: int, owner_pid: int, tag: str) -> "_Seg":
+        import _posixshmem
+
+        name = _shm_name(owner_pid, tag)
+        fd = _posixshmem.shm_open(
+            "/" + name, os.O_CREAT | os.O_EXCL | os.O_RDWR, mode=0o600
+        )
+        try:
+            os.ftruncate(fd, nbytes)
+            mm = mmap.mmap(fd, nbytes, flags=_SHM_MAP_FLAGS)
+        except BaseException:
+            os.close(fd)
+            cls.unlink(name)
+            raise
+        os.close(fd)
+        return cls(name, nbytes, mm)
+
+    @staticmethod
+    def attach(name: str, nbytes: int) -> Any:
+        """Map an existing segment; the returned mmap lives as long as
+        the arrays built over it."""
+        import _posixshmem
+
+        fd = _posixshmem.shm_open("/" + name, os.O_RDWR, mode=0o600)
+        try:
+            return mmap.mmap(fd, nbytes, flags=_SHM_MAP_FLAGS)
+        finally:
+            os.close(fd)
+
+    @staticmethod
+    def unlink(name: str) -> None:
+        import _posixshmem
+
+        try:
+            _posixshmem.shm_unlink("/" + name)
+        except FileNotFoundError:
+            pass
+
+    def release(self) -> None:
+        """Unmap (unless a view still uses the mapping) and unlink."""
+        try:
+            self.mm.close()
+        except BufferError:
+            pass  # unmapped when the last view goes
+        self.unlink(self.name)
+
+
+class _ShmRef:
+    """Pickle-tiny stand-in for an array staged in shared memory: its
+    segment's name, shape, numpy dtype (pickled as the dtype itself, so an
+    ``ml_dtypes`` leaf resolves as one), and ``bf16`` — the mark of a bf16
+    tensor's bit patterns (:class:`_BF16Bits`, stored as uint16)."""
+
+    __slots__ = ("name", "shape", "dtype", "bf16")
+
+    def __init__(
+        self, name: str, shape: "Tuple[int, ...]", dtype: np.dtype, bf16: bool
+    ) -> None:
+        self.name = name
+        self.shape = shape
+        self.dtype = dtype
+        self.bf16 = bf16
+
+    @classmethod
+    def of(cls, name: str, a: np.ndarray, bf16: bool) -> "_ShmRef":
+        return cls(name, tuple(a.shape), a.dtype, bf16)
+
+    def __getstate__(self):
+        return (self.name, self.shape, self.dtype, self.bf16)
+
+    def __setstate__(self, state):
+        self.name, self.shape, self.dtype, self.bf16 = state
+
+    @property
+    def nbytes(self) -> int:
+        return int(np.prod(self.shape, dtype=np.int64)) * self.dtype.itemsize
+
+    def root(self, buf: Any) -> np.ndarray:
+        """The flat array over ``buf`` (a mapping of this ref's segment).
+        Its base is the mapping, not an array, so every array derived from
+        it (reshapes, dtype views, ``torch.from_numpy``) keeps it alive."""
+        return np.frombuffer(
+            buf, dtype=self.dtype, count=self.nbytes // self.dtype.itemsize
+        )
+
+    def shaped(self, root: np.ndarray) -> np.ndarray:
+        """``root`` in this ref's shape, bf16-marked where the ref is."""
+        arr = root.reshape(self.shape)
+        return arr.view(_BF16Bits) if self.bf16 else arr
+
+    def view(self, buf: Any) -> np.ndarray:
+        """The array over ``buf``."""
+        return self.shaped(self.root(buf))
+
+    def map(self, maps: "Optional[Dict[str, Any]]" = None) -> np.ndarray:
+        """A zero-copy view of the segment (mapped until it is collected);
+        ``maps`` caches mappings by name across ops (a pooled segment comes
+        back under its name, its pages already mapped)."""
+        mm = maps.get(self.name) if maps is not None else None
+        if mm is None:
+            mm = _Seg.attach(self.name, self.nbytes)
+            if maps is not None:
+                maps[self.name] = mm
+        return self.view(mm)
+
+
+class _ShmIn:
+    """A resolved input segment inside the worker: kept for the op's
+    lifetime and reusable as the (already warm) result buffer."""
+
+    __slots__ = ("ref", "view", "used")
+
+    def __init__(self, ref: "_ShmRef", view: np.ndarray) -> None:
+        self.ref = ref
+        self.view = view
+        self.used = False
+
+
+def _large(a: Any) -> bool:
+    return isinstance(a, np.ndarray) and a.nbytes >= _SHM_MIN_BYTES
+
+
+def _leaf_nbytes(x: Any) -> int:
+    if isinstance(x, torch.Tensor):
+        return x.numel() * x.element_size()
+    return x.nbytes if isinstance(x, np.ndarray) else 0
+
+
+def _write_seg(a: np.ndarray, owner_pid: int, tag: str, what: str) -> "_Seg":
+    _shm_check_room(a.nbytes, what)
+    seg = _Seg.create(a.nbytes, owner_pid, tag)
+    dst = np.ndarray(a.shape, dtype=a.dtype, buffer=seg.mm)
+    dst[...] = a
+    del dst
+    return seg
+
+
+def _shm_resolve_value(
+    value: Any, opened: "List[_ShmIn]", maps: "Optional[Dict[str, Any]]" = None
+) -> Any:
+    """Materialize ``_ShmRef``s as zero-copy views (through the ``maps``
+    cache), recorded in ``opened`` for result reuse."""
+
+    def resolve(a: Any) -> Any:
+        if not isinstance(a, _ShmRef):
+            return a
+        view = a.map(maps)
+        opened.append(_ShmIn(a, view))
+        return view
+
+    if isinstance(value, list):
+        return [resolve(a) for a in value]
+    return resolve(value)
+
+
+def _shm_stage_result(
+    value: Any, inputs: "List[_ShmIn]", owner_pid: int, tag: str, what: str
+) -> Any:
+    """Worker-side result staging: write each large result array into a
+    matching (shape, dtype and bf16 mark) input segment — already-warm
+    pages, no fresh allocation — falling back to a fresh segment.  Small
+    values pickle."""
+
+    def stage(a: Any) -> Any:
+        if not _large(a):
+            return a
+        for inp in inputs:
+            if (
+                not inp.used
+                and inp.view.shape == a.shape
+                and inp.view.dtype == a.dtype
+                and _shm_mark(inp.view) == _shm_mark(a)
+            ):
+                inp.used = True
+                if inp.view is not a and not np.shares_memory(inp.view, a):
+                    inp.view[...] = a
+                return _ShmRef.of(inp.ref.name, a, _shm_mark(a))
+        seg = _write_seg(np.ascontiguousarray(a), owner_pid, tag, what)
+        seg.mm.close()
+        return _ShmRef.of(seg.name, a, _shm_mark(a))
+
+    if isinstance(value, list):
+        return [stage(a) for a in value]
+    return stage(value)
+
+
+def _shm_discard_value(value: Any, keep: "frozenset[str]" = frozenset()) -> None:
+    """Reclaim result segments whose message will never be consumed
+    (reader superseded by reconfigure, future already failed, parent
+    gone): dropping their refs without unlinking would pin the payload
+    in /dev/shm.  ``keep``: names the parent still owns (its inputs)."""
+    refs = value if isinstance(value, list) else [value]
+    for a in refs:
+        if isinstance(a, _ShmRef) and a.name not in keep:
+            _Seg.unlink(a.name)
+
+
+def _from_inner(v: Any) -> Any:
+    """An inner op's result as it crosses back: a tensor becomes its host
+    array (bf16 as :class:`_BF16Bits`), lists element-wise."""
+    if isinstance(v, torch.Tensor):
+        return _as_numpy(v)
+    if isinstance(v, list):
+        return [_from_inner(x) for x in v]
+    return v
+
+
+def _baby_worker(
+    pg_cls: type,
+    pipe_conn: Any,
+    store_addr: str,
+    replica_id: str,
+    rank: int,
+    world_size: int,
+    timeout: float,
+    owner_pid: int,
+    token: str,
+) -> None:
+    """Worker-process loop: run the real PG, execute ops from the pipe.
+
+    Protocol (reference worker loop, torchft/process_group.py:1470-1600):
+    parent sends ``(op_id, func_name, args, kwargs)``; worker runs the op,
+    *waits* the resulting Work, and replies ``(op_id, value, stats)`` on
+    success or ``(op_id, exception, None)`` on failure (``stats``: the
+    op's wait and its result staging, in seconds).
+    ``(op_id, "__shutdown__", ...)`` exits the loop.  Collectives execute
+    on a small thread pool so an in-flight op cannot block the command
+    loop, matching the parent's async Work API.
+
+    The worker never touches ``torch.cuda``: it gets host arrays only, and
+    a CUDA context here would cost card memory in every worker.  Result
+    segments it creates are named after the parent (``owner_pid``) and
+    its PG (``token``), which unlinks them.
+    """
+    import concurrent.futures as cf
+
+    pg = pg_cls()
+    pg.set_timeout(timeout)
+    try:
+        pg.configure(store_addr, replica_id, rank, world_size)
+    except Exception as e:  # noqa: BLE001 - shipped to parent
+        try:
+            # bare exception: _MonitoredPipe re-raises it in the parent's
+            # configure with the real root cause intact
+            pipe_conn.send(e)
+        except (BrokenPipeError, OSError):
+            pass
+        return
+    pipe_conn.send((-1, "configured"))
+
+    send_lock = _lockcheck.lock("pg.baby.pipe_send")
+    pool = cf.ThreadPoolExecutor(max_workers=4, thread_name_prefix="baby_op")
+
+    def _send(op_id: int, value: Any, stats: Any) -> None:
+        with send_lock:
+            try:
+                pipe_conn.send((op_id, value, stats))
+            except (BrokenPipeError, OSError):
+                # nobody will read the reply: its result segments go now
+                _shm_discard_value(value)
+
+    def _finish(op_id: int, func: str, work: Any, opened: "List[_ShmIn]") -> None:
+        try:
+            t0 = time.perf_counter()
+            try:
+                value = (
+                    work.wait(timeout=timeout) if isinstance(work, Work) else work
+                )
+            except Exception as e:  # noqa: BLE001 - shipped to parent
+                _send(op_id, e, None)
+                return
+            t1 = time.perf_counter()
+            # stage results into the warm input segments where shapes
+            # match (allreduce/broadcast/alltoall), fresh segments
+            # otherwise; the parent owns every segment from here
+            try:
+                value = _shm_stage_result(
+                    _from_inner(value), opened, owner_pid, f"o{token}", func
+                )
+            except Exception as e:  # noqa: BLE001 - shipped to parent
+                _send(op_id, e, None)
+                return
+            _send(op_id, value, {
+                "op_s": t1 - t0, "stage_out_s": time.perf_counter() - t1,
+            })
+        finally:
+            # the inputs' mappings go with their last view
+            opened.clear()
+
+    # mappings of the parent's pooled segments, kept across the last two
+    # ops: a recycled segment comes back under its name, already mapped
+    maps: "Dict[str, Any]" = {}
+    recent: "List[set]" = []
+    try:
+        while True:
+            try:
+                msg = pipe_conn.recv()
+            except (EOFError, OSError):
+                break
+            op_id, func, args, kwargs = msg
+            if func == "__shutdown__":
+                break
+            # enqueue on THIS thread so ops hit the inner PG in pipe order
+            # (pipelined collectives must match across ranks); only the
+            # wait() moves to the pool so an in-flight op can't block the
+            # command loop.
+            opened: "List[_ShmIn]" = []
+            try:
+                # bf16 bit patterns become a CPU bf16 tensor again, which the
+                # inner ProcessGroupTCP reduces in f32 as in the parent
+                args = [_host_result(_shm_resolve_value(a, opened, maps)) for a in args]
+                recent = recent[-1:] + [{inp.ref.name for inp in opened}]
+                for name in set(maps) - set().union(*recent):
+                    del maps[name]
+                work = getattr(pg, func)(*args, **kwargs)
+            except Exception as e:  # noqa: BLE001 - shipped to parent
+                opened.clear()
+                _send(op_id, e, None)
+                continue
+            pool.submit(_finish, op_id, func, work, opened)
+    finally:
+        pool.shutdown(wait=False)
+        try:
+            pg.shutdown()
+        except Exception:  # noqa: BLE001 - worker teardown is best-effort
+            pass
+
+
+class ProcessGroupBaby(ProcessGroup):
+    """Runs the real PG in a spawned subprocess for crash isolation.
+
+    Port of ``torchft_tpu/parallel/process_group.py``'s Baby PG
+    (reference: torchft/process_group.py:1358-1828).  ``configure`` kills
+    any existing worker and spawns a fresh one (subprocess restart *is*
+    the reconfigure); every collective is shipped over a command pipe and
+    returns a Work backed by a future that a reader thread resolves.
+    ``abort()`` kills the worker — the hard-cancel that a wedged socket
+    stack cannot block.
+
+    Leaves of ``_SHM_MIN_BYTES`` or more cross to the worker as ``/dev/shm``
+    segments: a tensor leaf is copied straight into its segment (one copy
+    from the card, where ``ProcessGroupTCP`` makes a host array first), a
+    bf16 tensor as its bit patterns with the bf16 mark on its ref.  Smaller
+    leaves go as :class:`ProcessGroupTCP` takes them (:func:`_as_numpy`),
+    pickled.  Results are what ``ProcessGroupTCP`` returns for the same
+    inputs, bit for bit: host arrays (zero-copy views of the segment the
+    worker wrote them into), bf16 leaves as CPU bf16 tensors.
+
+    Segments are pooled: an input segment whose result the caller has
+    dropped is reused by the next op of its size, so steady-state staging
+    writes warm pages instead of faulting in fresh tmpfs ones.  ``shutdown`` and every reconfigure unlink all of them: no segment of
+    the PG stays in ``/dev/shm``, while results the caller still holds stay
+    readable (a mapping outlives its name).
+
+    Workers start via the ``spawn`` method, so no CUDA context is
+    inherited and the using script must be importable without side
+    effects (guard its entry point with ``if __name__ == "__main__":``).
+    A worker imports this package, so with ``TORCHFT_USE_OTEL`` set it
+    installs the OTLP exporters in its own process, as the JAX package's
+    worker does.
+
+    ``stats`` accumulates the parent's view of each op, in seconds:
+    ``stage_in_s`` (leaves into shared memory or to host arrays),
+    ``round_trip_s`` (pipe send to reply), of it ``op_s`` and
+    ``stage_out_s`` (the worker's wait on the inner collective and its
+    result staging), and ``wrap_s`` (mapping the results); with ``ops``,
+    ``shm_in_bytes`` and ``shm_peak_bytes`` (the most this PG held in
+    ``/dev/shm`` at once).
+    """
+
+    PG_CLASS: type = None  # set by subclasses
+
+    def __init__(self, timeout: float = 60.0, max_active_work: int = 16) -> None:
+        """``max_active_work``: backpressure cap on in-flight ops — each op
+        can hold staged shared-memory payloads, so an unbounded submitter
+        would pin unbounded host memory (reference num_active_work,
+        torchft/process_group.py:1602-1645).  0 disables the cap."""
+        super().__init__(timeout)
+        self._proc: Optional[Any] = None
+        self._pipe: Optional[Any] = None
+        self._rank = -1
+        self._world = -1
+        self._errored_exc: Optional[Exception] = None
+        self._next_op_id = 0
+        self._baby_replica_id = ""
+        self._gen = 0  # bumped per configure; guards against stale readers
+        self._pending: Dict[int, Future] = {}
+        self._pending_shm: "Dict[int, List[_Seg]]" = {}
+        self._pending_t0: "Dict[int, float]" = {}
+        self._max_active_work = max_active_work
+        self._lock = _lockcheck.lock("pg.baby.state")
+        self._cond = threading.Condition(self._lock)
+        self._reader: Optional[threading.Thread] = None
+        # the segment pool: free segments by size, and those that back a
+        # result the caller still holds; _pool_epoch retires both at once
+        self._free: "Dict[int, List[_Seg]]" = {}
+        self._held: "Dict[str, _Seg]" = {}
+        # segments whose results died, queued by the GC finalizer (which
+        # may run on any thread, inside any lock) for the next _take
+        self._dead: "collections.deque[_Seg]" = collections.deque()
+        self._pool_epoch = 0
+        self._shm_live = 0  # bytes of this PG's named segments
+        # names this PG's segments apart from other Baby PGs of the process
+        self._token = uuid.uuid4().hex[:8]
+        self.stats: "Dict[str, float]" = {}
+        self.reset_stats()
+
+    def reset_stats(self) -> None:
+        with self._lock:
+            self.stats = {
+                "ops": 0, "stage_in_s": 0.0, "round_trip_s": 0.0, "op_s": 0.0,
+                "stage_out_s": 0.0, "wrap_s": 0.0, "shm_in_bytes": 0,
+                "shm_peak_bytes": self._shm_live,
+            }
+
+    def worker_pid(self) -> "Optional[int]":
+        proc = self._proc
+        return None if proc is None else proc.pid
+
+    def configure(self, store_addr: str, replica_id: str, rank: int, world_size: int) -> None:
+        import multiprocessing as mp
+
+        _faults.check("pg.reconfigure", replica=replica_id)
+        self._kill_worker()
+        _shm_sweep_dead()
+        self._errored_exc = None
+        self._baby_replica_id = replica_id
+        self._rank = rank
+        self._world = world_size
+
+        ctx = mp.get_context("spawn")
+        parent_conn, child_conn = ctx.Pipe()
+        self._proc = ctx.Process(
+            target=_baby_worker,
+            args=(
+                type(self).PG_CLASS,
+                child_conn,
+                store_addr,
+                replica_id,
+                rank,
+                world_size,
+                self._timeout,
+                os.getpid(),
+                self._token,
+            ),
+            daemon=True,
+        )
+        self._proc.start()
+        child_conn.close()
+
+        from torchft_tpu_torch.multiprocessing import _MonitoredPipe
+
+        pipe = _MonitoredPipe(parent_conn)
+        with self._lock:
+            self._pipe = pipe
+            self._gen += 1
+            gen = self._gen
+        # first message acks configure; a worker-side configure failure
+        # arrives as a bare exception that _MonitoredPipe re-raises here
+        ack = self._recv_ack(pipe)
+        if ack != (-1, "configured"):
+            self._kill_worker()
+            raise RuntimeError(f"unexpected configure ack from worker: {ack!r}")
+
+        self._reader = threading.Thread(
+            target=self._read_loop,
+            args=(pipe, gen),
+            name="baby_pg_reader",
+            daemon=True,
+        )
+        self._reader.start()
+        _metrics.PG_RECONFIGURES.labels(transport="baby").inc()
+
+    def _recv_ack(self, pipe: Any) -> Any:
+        # the worker's own configure runs under the PG timeout and ships
+        # its failure here; the wait outlasts it by the worker's start (a
+        # spawned Python importing torch), so the root cause arrives
+        # before this side gives up
+        try:
+            return pipe.recv(timeout=self._timeout + _SPAWN_GRACE_S)
+        except Exception:
+            self._kill_worker()
+            raise
+
+    def _read_loop(self, pipe: Any, gen: int) -> None:
+        while True:
+            try:
+                msg = pipe.recv(timeout=None)
+            except Exception as e:  # noqa: BLE001 - includes EOF/reset/transport
+                # EOFError (clean close) or ConnectionResetError (SIGKILL)
+                # both mean the worker died; transported exceptions arrive
+                # without an op id and are equally fatal to all pending ops.
+                # The generation check inside _fail_all makes a stale reader
+                # (whose PG was already reconfigured) a no-op.
+                if isinstance(e, (EOFError, OSError)):
+                    self._fail_all(RuntimeError(f"baby PG worker exited: {e!r}"), gen)
+                else:
+                    self._fail_all(
+                        e if isinstance(e, Exception) else RuntimeError(str(e)), gen
+                    )
+                return
+            op_id, value, wstats = msg
+            with self._lock:
+                if gen != self._gen:
+                    # reconfigured under us; results no longer ours — but
+                    # any worker-created result segments still need reaping
+                    _shm_discard_value(value)
+                    return
+                fut = self._pending.pop(op_id, None)
+                in_segs = self._pending_shm.pop(op_id, [])
+                t_sent = self._pending_t0.pop(op_id, None)
+                if fut is not None and isinstance(value, Exception):
+                    self._errored_exc = self._errored_exc or value
+                if wstats:
+                    self.stats["op_s"] += wstats["op_s"]
+                    self.stats["stage_out_s"] += wstats["stage_out_s"]
+                if t_sent is not None:
+                    self.stats["round_trip_s"] += time.perf_counter() - t_sent
+                self._cond.notify_all()
+            if fut is None or isinstance(value, Exception):
+                if not isinstance(value, Exception):
+                    _shm_discard_value(value, frozenset(g.name for g in in_segs))
+                self._settle(in_segs, ())
+                if fut is not None:
+                    fut.set_exception(value)
+                continue
+            t0 = time.perf_counter()
+            try:
+                result, held = self._wrap(value, in_segs)
+            except Exception as e:  # noqa: BLE001 - decode failure
+                self._settle(in_segs, ())
+                fut.set_exception(e)
+                continue
+            self._settle(in_segs, held)
+            with self._lock:
+                self.stats["wrap_s"] += time.perf_counter() - t0
+            fut.set_result(_host_result(result))
+            # the loop's locals would keep this result (and the segments
+            # behind it) alive until the next reply: past the next op's
+            # staging, which would then miss the pool
+            msg = value = result = fut = None
+
+    # -- the segment pool --------------------------------------------------
+
+    def _take(self, nbytes: int, what: str) -> "_Seg":
+        """A segment of ``nbytes``: a free one of the pool, else a new one
+        (after checking that ``/dev/shm`` holds it)."""
+        self._drain_dead()
+        with self._lock:
+            free = self._free.get(nbytes)
+            if free:
+                return free.pop()
+        _shm_check_room(nbytes, what)
+        seg = _Seg.create(nbytes, os.getpid(), f"i{self._token}")
+        with self._lock:
+            self._shm_live += nbytes
+            self.stats["shm_peak_bytes"] = max(
+                self.stats["shm_peak_bytes"], self._shm_live
+            )
+        return seg
+
+    def _release(self, seg: "_Seg") -> None:
+        seg.release()
+        with self._lock:
+            self._shm_live -= seg.size
+
+    def _recycle(self, seg: "_Seg", epoch: int) -> None:
+        """Back to the free pool, or released when the pool was retired
+        since the segment was taken."""
+        with self._lock:
+            keep = epoch == self._pool_epoch
+            if keep:
+                self._free.setdefault(seg.size, []).append(seg)
+        if not keep:
+            self._release(seg)
+
+    def _settle(self, in_segs: "List[_Seg]", held: "Any") -> None:
+        """An op is done: its input segments that back no result go back
+        to the pool."""
+        with self._lock:
+            epoch = self._pool_epoch
+        for seg in in_segs:
+            if seg.name not in held:
+                self._recycle(seg, epoch)
+
+    def _result_dead(self, seg: "_Seg", epoch: int) -> None:
+        """GC finalizer of a result's last view: takes no lock."""
+        if epoch == self._pool_epoch:
+            self._dead.append(seg)
+        else:
+            seg.release()  # retired: its name is gone already
+
+    def _drain_dead(self) -> None:
+        with self._lock:
+            epoch = self._pool_epoch
+        while self._dead:
+            seg = self._dead.popleft()
+            with self._lock:
+                self._held.pop(seg.name, None)
+            self._recycle(seg, epoch)
+
+    def _retire_pool(self) -> None:
+        """Unlink every segment of this PG: the free ones go, and those
+        backing results the caller still holds lose their names (their
+        mappings stay until the results die)."""
+        self._drain_dead()
+        with self._lock:
+            self._pool_epoch += 1
+            free = [g for gs in self._free.values() for g in gs]
+            self._free = {}
+            held, self._held = list(self._held.values()), {}
+        for seg in free:
+            seg.release()
+        for seg in held:
+            _Seg.unlink(seg.name)
+        with self._lock:
+            self._shm_live = 0
+
+    def _wrap(self, value: Any, in_segs: "List[_Seg]") -> "Tuple[Any, set]":
+        """Parent-side result decode: each ``_ShmRef`` becomes a ZERO-COPY
+        view.  A result the worker wrote into one of the op's input
+        segments is read through this process's own mapping of it, and the
+        segment returns to the pool when the caller's last view dies (a
+        finalizer on the flat root array that every view keeps alive); a
+        segment the worker made is mapped and its name unlinked at once
+        (the mapping outlives the name).  Returns the results and the
+        names of the input segments they hold."""
+        mine = {g.name: g for g in in_segs}
+        held: set = set()
+        with self._lock:
+            epoch = self._pool_epoch
+
+        def wrap(a: Any) -> Any:
+            if not isinstance(a, _ShmRef):
+                return a
+            seg = mine.get(a.name)
+            if seg is None:
+                arr = a.map()
+                _Seg.unlink(a.name)
+                return arr
+            root = a.root(seg.mm)
+            held.add(seg.name)
+            with self._lock:
+                self._held[seg.name] = seg
+            weakref.finalize(root, self._result_dead, seg, epoch)
+            return a.shaped(root)
+
+        out = [wrap(a) for a in value] if isinstance(value, list) else wrap(value)
+        return out, held
+
+    def _stage(self, value: Any, created: "List[_Seg]", what: str) -> Any:
+        """Leaves (a leaf or a list) as the worker takes them: large ones
+        copied into pooled segments (a tensor straight from its device; a
+        bf16 one as its bit patterns) and replaced by ``_ShmRef``s, the
+        rest as host arrays (:func:`_as_numpy`)."""
+
+        def stage(x: Any) -> Any:
+            if not isinstance(x, (torch.Tensor, np.ndarray)):
+                return _as_numpy(x)
+            nbytes = _leaf_nbytes(x)
+            if nbytes < _SHM_MIN_BYTES:
+                return _as_numpy(x)
+            if isinstance(x, torch.Tensor):
+                bf16 = x.dtype == torch.bfloat16
+                if not bf16 and x.dtype not in _TORCH_TO_NUMPY:
+                    raise TypeError(
+                        f"process group leaves must have a numpy dtype or "
+                        f"be bf16, got {x.dtype}"
+                    )
+                seg = self._take(nbytes, what)
+                created.append(seg)
+                shape = tuple(x.shape)
+                if bf16:
+                    dst = np.ndarray(shape, dtype=np.int16, buffer=seg.mm)
+                    torch.from_numpy(dst).copy_(x.detach().view(torch.int16))
+                    host = dst.view(np.uint16).view(_BF16Bits)
+                else:
+                    host = np.ndarray(
+                        shape, dtype=_TORCH_TO_NUMPY[x.dtype], buffer=seg.mm
+                    )
+                    torch.from_numpy(host).copy_(x.detach())
+            else:
+                seg = self._take(nbytes, what)
+                created.append(seg)
+                host = np.ndarray(x.shape, dtype=x.dtype, buffer=seg.mm)
+                host[...] = x
+                if isinstance(x, _BF16Bits):
+                    host = host.view(_BF16Bits)
+            return _ShmRef.of(seg.name, host, _shm_mark(host))
+
+        if isinstance(value, list):
+            return [stage(x) for x in value]
+        return stage(value)
+
+    # -- failure and teardown ----------------------------------------------
+
+    def _fail_all(self, exc: Exception, gen: "Optional[int]" = None) -> None:
+        with self._lock:
+            if gen is not None and gen != self._gen:
+                return  # stale reader of a pre-reconfigure worker
+            self._errored_exc = self._errored_exc or exc
+            pending, self._pending = self._pending, {}
+            pending_shm, self._pending_shm = self._pending_shm, {}
+            self._pending_t0 = {}
+            self._cond.notify_all()
+        for segs in pending_shm.values():
+            for seg in segs:
+                self._release(seg)
+        for fut in pending.values():
+            if not fut.done():
+                fut.set_exception(exc)
+
+    def _kill_worker(self) -> None:
+        # claim pipe+proc under the lock: abort() and configure() can race
+        # here, and nulling before close makes the reader thread see a stale
+        # pipe (deliberate teardown), not a worker death. Bumping the
+        # generation here (not just in configure) immediately invalidates
+        # the old reader so it cannot latch an error after a reconfigure
+        # clears the latched state.
+        with self._lock:
+            pipe, self._pipe = self._pipe, None
+            proc, self._proc = self._proc, None
+            self._gen += 1
+        if pipe is not None:
+            try:
+                pipe.close()
+            except OSError:
+                pass
+        if proc is not None:
+            try:
+                proc.terminate()
+                proc.join(timeout=5)
+                if proc.is_alive():
+                    proc.kill()
+                    proc.join(timeout=5)
+            except ValueError:
+                pass  # process never started (configure failed mid-spawn)
+        self._fail_all(_PGAborted("process group aborted"))
+        self._retire_pool()
+        # result segments the dead worker made but never handed over carry
+        # this PG's name; with the worker gone, nothing else will take them
+        self._sweep_own_results()
+
+    def _sweep_own_results(self) -> None:
+        mine = f"{_shm_owner_prefix(os.getpid())}o{self._token}_"
+        try:
+            names = [n for n in os.listdir(_SHM_DIR) if n.startswith(mine)]
+        except OSError:
+            return
+        for name in names:
+            try:
+                os.unlink(os.path.join(_SHM_DIR, name))
+            except OSError:
+                pass
+
+    def _submit(self, func: str, data: Any, *rest: Any) -> Work:
+        with self._lock:
+            # backpressure: bound in-flight ops (each may pin staged shm)
+            if self._max_active_work > 0:
+                deadline = time.monotonic() + self._timeout
+                while (
+                    len(self._pending) >= self._max_active_work
+                    and self._errored_exc is None
+                    and self._pipe is not None
+                ):
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0 or not self._cond.wait(timeout=remaining):
+                        return failed_work(
+                            TimeoutError(
+                                f"{len(self._pending)} ops in flight >= "
+                                f"max_active_work={self._max_active_work} "
+                                f"for {self._timeout}s"
+                            )
+                        )
+            if self._errored_exc is not None:
+                return failed_work(self._errored_exc)
+            if self._pipe is None:
+                return failed_work(RuntimeError("process group not configured"))
+            op_id = self._next_op_id
+            self._next_op_id += 1
+            fut: Future = Future()
+            self._pending[op_id] = fut
+            pipe = self._pipe  # local ref: abort() may null the attribute
+            self.stats["ops"] += 1
+        # stage outside the lock (a copy from the card of a large leaf can
+        # take a second); the segments stay the op's until it resolves
+        created: "List[_Seg]" = []
+        t0 = time.perf_counter()
+        try:
+            args = rest if data is None else (self._stage(data, created, func),) + rest
+        except Exception as e:  # noqa: BLE001 - staging failure fails the op
+            for seg in created:
+                self._release(seg)
+            with self._lock:
+                self._pending.pop(op_id, None)
+                self._cond.notify_all()
+            return failed_work(e)
+        staged = sum(seg.size for seg in created)
+        with self._lock:
+            self.stats["stage_in_s"] += time.perf_counter() - t0
+            self.stats["shm_in_bytes"] += staged
+            if op_id in self._pending:
+                self._pending_shm[op_id] = created
+                self._pending_t0[op_id] = time.perf_counter()
+                orphaned: "List[_Seg]" = []
+            else:
+                # failed/aborted while staging; nothing will clean these
+                orphaned = created
+        for seg in orphaned:
+            self._release(seg)
+        try:
+            pipe.send((op_id, func, args, {}))
+        except (BrokenPipeError, OSError) as e:
+            with self._lock:
+                self._pending.pop(op_id, None)
+                self._pending_t0.pop(op_id, None)
+                segs = self._pending_shm.pop(op_id, [])
+                self._cond.notify_all()
+            for seg in segs:
+                self._release(seg)
+            self._errored_exc = self._errored_exc or e
+            return failed_work(e)
+        return Work(fut).with_timeout(self._timeout)
+
+    # -- ProcessGroup API --------------------------------------------------
+
+    def abort(self) -> None:
+        _metrics.PG_ABORTS.labels(transport="baby").inc()
+        _flightrec.record(
+            "pg.abort", status="abort", transport="baby",
+            replica_id=self._baby_replica_id, rank=self._rank,
+            world=self._world,
+        )
+        _flightrec.dump("baby process group aborted", trigger="pg_abort")
+        self._kill_worker()  # latches _PGAborted via _fail_all
+
+    def errored(self) -> Optional[Exception]:
+        return self._errored_exc
+
+    def shutdown(self) -> None:
+        if self._pipe is not None:
+            try:
+                self._pipe.send((-1, "__shutdown__", (), {}))
+            except (BrokenPipeError, OSError):
+                pass
+        self._kill_worker()
+
+    def rank(self) -> int:
+        return self._rank
+
+    def size(self) -> int:
+        return self._world
+
+    def allreduce(self, arrays: "List[Any]", op: str = REDUCE_SUM) -> Work:
+        return self._submit("allreduce", list(arrays), op)
+
+    def allgather(self, array: Any) -> Work:
+        return self._submit("allgather", array)
+
+    def broadcast(self, array: Any, root: int = 0) -> Work:
+        return self._submit("broadcast", array, root)
+
+    def reduce_scatter(self, array: Any, op: str = REDUCE_SUM) -> Work:
+        return self._submit("reduce_scatter", array, op)
+
+    def alltoall(self, arrays: "List[Any]") -> Work:
+        return self._submit("alltoall", list(arrays))
+
+    def sendrecv(self, array: Any, dst: int, src: int, tag: int = 0) -> Work:
+        return self._submit("sendrecv", array, dst, src, tag)
+
+    def send(self, array: Any, dst: int, tag: int = 0) -> Work:
+        return self._submit("send", array, dst, tag)
+
+    def recv(self, src: int, tag: int = 0, out: "Optional[np.ndarray]" = None) -> Work:
+        work = self._submit("recv", None, src, tag)
+        if out is None:
+            return work
+
+        # the worker can't share the caller's buffer; emulate in-place by
+        # copying the (possibly shm-backed) result into it — with the same
+        # validation the direct backend's wire reader applies
+        def into(x: Any) -> Any:
+            arr = _as_numpy(x)
+            _check_recv_buffer(out, arr.shape, _dtype_name(arr))
+            out[...] = arr
+            return _host_result(out.view(_BF16Bits) if _dtype_name(arr) == _BF16 else out)
+
+        return work.then(into)
+
+
+class ProcessGroupBabyTCP(ProcessGroupBaby):
+    """Subprocess-isolated ProcessGroupTCP (reference ProcessGroupBabyGloo
+    analog, torchft/process_group.py:1883-1923)."""
+
+    PG_CLASS = ProcessGroupTCP

@@ -43,6 +43,10 @@ def _to_seconds(timeout: "float | timedelta") -> float:
     return float(timeout)
 
 
+def _noop() -> None:
+    pass
+
+
 class _Timer:
     __slots__ = ("deadline", "seq", "callback", "cancelled")
 
@@ -63,6 +67,10 @@ class _TimerHandle:
 
     def cancel(self) -> None:
         self._timer.cancelled = True
+        # A cancelled timer waits in the heap until it surfaces; its
+        # callback's closure holds the mirrored future and so the result
+        # (a collective's arrays) for the whole timeout unless dropped now.
+        self._timer.callback = _noop
         # Only wake the timer thread when this timer is the heap head (it may
         # be sleeping until exactly this deadline); cancelled non-head timers
         # are lazily dropped when they surface.
