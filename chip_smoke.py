@@ -113,8 +113,8 @@ Phases, any failure exits non-zero:
     2, the group's Manager server found through the group's store), an
     inner mesh ``{"cp": 2}`` over gloo (CUDA tensors staged through pinned
     host buffers), and the flagship at full width, its depth cut to
-    ``CP_LAYERS`` (4), with ring attention, T = 1024 split into two chunks of
-    512, B = 8, AdamW, three committed steps.  At step 0, group 0's rank 0
+    ``CP_LAYERS`` (2), with ring attention, T = 1024 split into two chunks of
+    512, B = 8, AdamW, two committed steps.  At step 0, group 0's rank 0
     also runs the one-device flash model and the same model in f32 with
     plain dense attention on the whole sequence, and group 0 runs Ulysses
     (3 KV heads replicated to 6), all on the same weights and tokens: the
@@ -135,14 +135,14 @@ Phases, any failure exits non-zero:
     spawned as in phase 10, each process with its own Manager over its
     shards (``group_rank`` = its rank in the group), an inner mesh
     ``{"fsdp": 2, "tp": 2}`` over gloo with pinned host staging, and the
-    flagship at full width, its depth cut to ``HSDP_LAYERS`` (4; full remat), with
+    flagship at full width, its depth cut to ``HSDP_LAYERS`` (2; full remat), with
     its weights sharded as the JAX package's ``param_specs`` say: each
     block's weights gathered over fsdp in its forward (and again in the
     recompute) and reduce-scattered in its backward, column- and
     row-parallel matmuls over tp, attention on the rank's 3 heads through
     kernels A, B and C (the 3 KV heads, which tp = 2 does not divide,
     expanded first), a vocab-parallel head and loss; B = 8, T = 1024,
-    AdamW, four committed steps.  At step 0 group 0's rank 0 also runs the
+    AdamW, three committed steps.  At step 0 group 0's rank 0 also runs the
     one-device flash model and the f32 model with plain dense attention on
     the whole weights and tokens; the sharded loss must match the
     one-device model's to 1e-3 relative and the gathered gradients hold
@@ -175,7 +175,7 @@ Phases, any failure exits non-zero:
     attention ``auto`` (kernels A, B and C on each stage's rows), each
     microbatch routed over both ep ranks' tokens with the global capacity
     and slot offsets, the expert buffers reduce-scattered to their experts'
-    ep ranks and all-gathered back; B = 8, T = 1024, AdamW, four committed
+    ep ranks and all-gathered back; B = 8, T = 1024, AdamW, three committed
     steps.  At step 0 group 0's rank 0 also runs the one-device flash model
     and the f32 model with plain dense attention on the whole weights, each
     microbatch on its own (the pipeline's routing); the routings near a tie
@@ -224,7 +224,30 @@ Phases, any failure exits non-zero:
     the Manager's average, host to device, the commit vote and AdamW), the
     workers' start and
     resident memory, the peak bytes in ``/dev/shm``, each fault's time to
-    recover, the heal, and host and device memory per trainer.
+    recover, the heal, and host and device memory per trainer.  Every
+    trainer incarnation writes its own flight dump (after every step, with
+    its ``.prov`` companion), event file and span file, and the phase saves
+    the surviving leader's ``/timeline.json`` and ``/links.json``; then it
+    runs the port's post-mortem CLI (``python -m torchft_tpu_torch.diagnose
+    ... --json``, and once more with ``--fragment`` on a fragment of group
+    1's heal) and asserts that it names group 1's killed first incarnation
+    as the culprit (not group 0), the worker kill as a failed op the run
+    recovered from, a critical-path ledger over every committed step whose
+    ``wire`` on a warm step is the Manager's ring phase (which holds the
+    Baby PG's pipe round trip), and a clean heal hop into group 1's second
+    incarnation; it prints the verdict and the ledger.
+
+14. Transport bench: the port's ``checkpointing/transport_bench.py`` at
+    ``TRANSPORT_GB`` GiB of f32 tensors on the card, over ``HTTPTransport``
+    (stage, receive, receive in place into tensors on the card) and over
+    ``PGTransport`` on two ``ProcessGroupTCP`` ranks (send and receive,
+    then in place), every received leaf bitwise equal to the one sent.
+    Prints seconds and GiB/s per leg.
+
+15. Example: ``examples/torch/train_ddp.py --local-replicas 2`` on the card
+    for ``EXAMPLE_STEPS`` steps (the CNN under FT-DDP, two replica groups
+    as threads with a lighthouse of its own); it must exit 0 with its
+    closing line.
 
 The last two lines are the kernels' JSON record and the device JSON.
 """
@@ -288,6 +311,31 @@ def release_host_memory() -> float:
     except (OSError, AttributeError):
         pass
     return host_rss_gb()
+
+
+def hold_first_quorum(addr: str, n: int, timeout: float = 600.0) -> None:
+    """Hold a lighthouse's first quorum round open until ``n`` replicas wait
+    in it: heartbeat ``n`` placeholder ids meanwhile, so that the split-brain
+    guard (participants must be more than half of the heartbeating ids)
+    keeps the round from forming; they expire a heartbeat timeout after the
+    last one and the round forms with all ``n``.  Without it a group whose
+    thread or process is slow to start joins a step late (a lighthouse with
+    ``min_replicas`` below ``n`` forms the round as soon as every replica it
+    has heard from has joined).  Run it in a thread beside the groups."""
+    from torchft_tpu_torch.coordination import LighthouseClient
+
+    client = LighthouseClient(addr)
+    deadline = time.monotonic() + timeout
+    try:
+        while time.monotonic() < deadline:
+            for i in range(n):
+                client.heartbeat(f"first_quorum_hold_{i}")
+            if client.status()["num_participants"] >= n:
+                return
+            time.sleep(0.05)
+        raise TimeoutError(f"{n} replicas never joined the first quorum")
+    finally:
+        client.close()
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -1339,10 +1387,13 @@ def reshard_path(cfg=None, batch: int = 8, seq: int = 1024, device: str = "cuda"
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     t_start = time.perf_counter()
-    ex = ThreadPoolExecutor(max_workers=n_groups)
+    ex = ThreadPoolExecutor(max_workers=n_groups + 1)
     try:
+        # the seed layout needs all four groups in the first quorum
+        hold = ex.submit(hold_first_quorum, lighthouse.address(), n_groups)
         results = [f.result(timeout=1800)
                    for f in [ex.submit(group, g) for g in range(n_groups)]]
+        hold.result(timeout=60)
     finally:
         ex.shutdown(wait=False)
         lighthouse.shutdown()
@@ -2300,11 +2351,11 @@ def log_moe_serve(card: str, msum: dict, layer: dict, small: dict) -> None:
 
 #: phase 10's in-group sequence-parallel (cp) size and its training steps
 CP_SIZE = 2
-CP_STEPS = 3
+CP_STEPS = 2
 #: phase 10's depth, cut from the flagship's 16 layers so that the whole
 #: script, phase 13 included, exits well inside its 1200 s (widths are
 #: never cut)
-CP_LAYERS = 4
+CP_LAYERS = 2
 #: Phase 10's step-0 checks, bf16 on the card; any one failing fails the
 #: run.  Loss (f32, a mean over 8184 positions): the ring's against the
 #: one-device flash model's, and Ulysses' against the ring's, within
@@ -2828,10 +2879,10 @@ def log_cp(card: str, csum: dict) -> None:
 #: phase 11's inner mesh (each replica group's processes), its training
 #: steps, and the commit after which group 1's processes are killed
 HSDP_INNER = {"fsdp": 2, "tp": 2}
-#: phase 11's depth, cut from 16 to 4 layers for the script's 1200 s, as
+#: phase 11's depth, cut from 16 to 2 layers for the script's 1200 s, as
 #: CP_LAYERS (widths are never cut)
-HSDP_LAYERS = 4
-HSDP_STEPS = 4
+HSDP_LAYERS = 2
+HSDP_STEPS = 3
 HSDP_KILL_AFTER = 2
 #: Phase 11's planted fault: the fsdp reduce-scatter averages instead of
 #: summing.  The loss is unchanged, the sharded leaves' gradients are
@@ -3319,7 +3370,7 @@ def log_hsdp(card: str, hsum: dict) -> None:
 #: phase 12's inner mesh, its training steps, the commit after which group
 #: 1's processes are killed, and the GPipe microbatch count
 PP_INNER = {"pp": 2, "ep": 2}
-PP_STEPS = 4
+PP_STEPS = 3
 PP_KILL_AFTER = 2
 PP_MICROBATCHES = 4
 #: Phase 12's references route as the pp x ep model did: its training
@@ -3831,6 +3882,10 @@ FLEET_ROWS = 64  # rows of the seeded synthetic token set
 FLEET_LEASE_MS = 1000
 FLEET_SEED = 0
 FLEET_TRAINER = "import chip_smoke; chip_smoke.fleet_member()"
+#: each trainer incarnation's evidence files for the post-mortem, by env var
+FLEET_SINKS = {"TORCHFT_FLIGHT_FILE": ".flight.jsonl",
+               "TORCHFT_EVENTS_FILE": ".events.jsonl",
+               "TORCHFT_TRACE_FILE": ".trace.jsonl"}
 
 
 def _write_json(path: str, doc: dict) -> None:
@@ -3908,6 +3963,7 @@ def _fleet_trainer(spec: dict, gid: int, groups: int) -> None:
     from torchft_tpu_torch.ops import flash_attention as fa
     from torchft_tpu_torch.ops import pallas_quant as pq
     from torchft_tpu_torch.ops.collectives import allreduce_quantized
+    from torchft_tpu_torch.utils import flightrecorder
 
     d, device = spec["dir"], spec["device"]
     on_card = device == "cuda"
@@ -3967,6 +4023,7 @@ def _fleet_trainer(spec: dict, gid: int, groups: int) -> None:
         use_async_quorum=False, timeout=spec["pg_timeout"],
         quorum_timeout=spec["pg_timeout"], init_sync=False,
     )
+    rec["replica_id"] = manager._replica_id
     optim = OptimizerWrapper(manager, opt)
     ddp = DistributedDataParallel(manager)
     grad_step = tf.make_grad_step(cfg)
@@ -4046,6 +4103,9 @@ def _fleet_trainer(spec: dict, gid: int, groups: int) -> None:
             rec["twin_calls"] = {fn.__name__: fn.calls for fn in twins}
             rec["shm_peak_bytes"] = st["shm_peak_bytes"]
             _write_json(path, rec)
+            # the evidence a SIGKILL leaves: the flight ring (and its .prov
+            # companion) as of this step, since a killed process dumps nothing
+            flightrecorder.dump(f"fleet step {step}", trigger="step")
             log(f"  fleet g{gid} inc{inc} " + json.dumps(
                 {k: s[k] for k in ("step", "committed", "quorum_id", "step_ms", "sync_ms",
                                    "baby_ms", "error")}))
@@ -4108,11 +4168,20 @@ def fleet_member() -> None:
     chip_smoke; chip_smoke.fleet_member()"``): its replica group from the
     launcher's env triple, the rest of its spec from
     ``TORCHFT_FLEET_SPEC``.  Exits 0 only when it trained to the end."""
+    import glob
+
     code = 1
     try:
         spec = json.loads(os.environ["TORCHFT_FLEET_SPEC"])
-        _fleet_trainer(spec, int(os.environ["REPLICA_GROUP_ID"]),
-                       int(os.environ["NUM_REPLICA_GROUPS"]))
+        gid = int(os.environ["REPLICA_GROUP_ID"])
+        # this incarnation's flight, event and span sinks, set before the
+        # port is imported (its telemetry installs at import); the Baby
+        # worker inherits them
+        inc = len(glob.glob(os.path.join(spec["dir"], f"g{gid}_inc*.json")))
+        stem = os.path.join(spec["evidence"], f"g{gid}_inc{inc}")
+        for var, suffix in FLEET_SINKS.items():
+            os.environ[var] = stem + suffix
+        _fleet_trainer(spec, gid, int(os.environ["NUM_REPLICA_GROUPS"]))
         code = 0
     except BaseException:  # noqa: BLE001 - the exit code carries it
         traceback.print_exc()
@@ -4136,16 +4205,140 @@ def _shm_used() -> int:
     return (st.f_blocks - st.f_bfree) * st.f_frsize
 
 
+def fleet_postmortem(ev: str) -> dict:
+    """Run the port's post-mortem CLI (``python -m torchft_tpu_torch.diagnose``)
+    over phase 13's evidence in ``ev``: every incarnation's flight dumps and
+    their ``.prov`` companions, event files, the span files joined into one,
+    and the surviving leader's ``/timeline.json`` and ``/links.json``; then
+    once more with ``--fragment`` on the first fragment the restarted group
+    healed.  Returns both ``--json`` reports with the argument lists and
+    each run's wall seconds."""
+    import glob
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    trace = os.path.join(ev, "trace.jsonl")
+    with open(trace, "w") as out:
+        for path in sorted(glob.glob(os.path.join(ev, "g*_inc*.trace.jsonl"))):
+            with open(path) as f:
+                out.write(f.read())
+    argv = sorted(glob.glob(os.path.join(ev, "g*_inc*.flight.jsonl")))
+    argv += sorted(glob.glob(os.path.join(ev, "g*_inc*.flight.jsonl.prov")))
+    for path in sorted(glob.glob(os.path.join(ev, "g*_inc*.events.jsonl"))):
+        argv += ["--events", path]
+    argv += ["--trace", trace, "--timeline", os.path.join(ev, "timeline.json"),
+             "--links", os.path.join(ev, "links.json"), "--json"]
+    frag = None
+    with open(os.path.join(ev, "g1_inc1.flight.jsonl.prov")) as f:
+        for line in f:
+            r = json.loads(line)
+            if r.get("op") == "fragment.hop" and r.get("plane") == "heal":
+                frag = r["frag"]
+                break
+    assert frag is not None, "the restarted group's dumps hold no heal hop"
+    # run from the checkout's root (``-m`` finds the port there), writing
+    # into no sink of its own
+    env = {k: v for k, v in os.environ.items() if k not in FLEET_SINKS}
+    with open(os.path.join(ev, "argv.txt"), "w") as f:
+        f.write("\n".join(argv) + "\n")
+    out = {"argv": argv, "fragment": frag}
+    for key, args in (("report", argv), ("fragment_report", argv + ["--fragment", frag])):
+        t0 = time.monotonic()
+        run = subprocess.run([sys.executable, "-m", "torchft_tpu_torch.diagnose", *args],
+                             capture_output=True, text=True, cwd=here, env=env, timeout=600)
+        out[f"{key}_wall_s"] = time.monotonic() - t0
+        assert run.returncode == 0, f"diagnose exited {run.returncode}: {run.stderr[-4000:]}"
+        out[key] = json.loads(run.stdout)
+        with open(os.path.join(ev, f"{key}.json"), "w") as f:
+            f.write(run.stdout)
+    return out
+
+
+def check_fleet_report(pm: dict, g0: dict, g1k: dict, g1: dict) -> dict:
+    """Hold the post-mortem of phase 13 (:func:`fleet_postmortem`) to what
+    the phase did, and return its verdict for the log:
+
+    (a) the culprit is group 1's SIGKILLed first incarnation, whose records
+        stop at the step after its commit ``FLEET_TRAINER_KILL_AFTER``;
+        group 0 is not blamed;
+    (b) the worker kill of step ``FLEET_WORKER_KILL_STEP`` is the report's
+        failed op, and every surviving incarnation's records go on to the
+        last step: the run recovered from it;
+    (c) the critical-path ledger has every committed step and names a
+        dominant category for each; on group 0's warm steps its ``wire`` is
+        the Manager's ``ring`` phase of that step, which holds the Baby
+        PG's pipe round trip;
+    (d) the ``--fragment`` journey has a heal hop into group 1's second
+        incarnation with an ``ok`` digest verdict, and no poisoned hop."""
+    rep, frep = pm["report"], pm["fragment_report"]
+    ids = {"g0": g0["replica_id"], "g1_inc0": g1k["replica_id"], "g1_inc1": g1["replica_id"]}
+    steps = g0["final_step"]
+    # (a)
+    c = rep["culprit"]
+    assert c is not None and c["replica_id"] == ids["g1_inc0"], (c, ids)
+    assert c["signal"] == "silent_death", c
+    assert rep["replicas"][ids["g1_inc0"]]["max_step"] == FLEET_TRAINER_KILL_AFTER, rep["replicas"]
+    assert f"records stop at step {FLEET_TRAINER_KILL_AFTER} " in c["reason"], c
+    # (b)
+    f = rep["failure"]
+    assert f is not None and f["step"] == FLEET_WORKER_KILL_STEP, f
+    assert "worker exited" in str(f["detail"]), f
+    assert f["reported_by"] in (ids["g0"], ids["g1_inc0"]), f
+    for key in ("g0", "g1_inc1"):
+        assert rep["replicas"][ids[key]]["max_step"] == steps, (key, rep["replicas"])
+    # (c)
+    ledger = rep["trace_ledger"]
+    rows = {r["step"]: r for r in ledger["steps"]}
+    assert set(range(steps)) <= set(rows), sorted(rows)
+    assert all(rows[n]["dominant"] for n in range(steps)), [
+        (n, rows[n]["dominant"]) for n in range(steps)]
+    warm = [s_ for s_ in g0["steps"] if s_["committed"] and s_["step"] not in (
+        0, FLEET_WORKER_KILL_STEP, FLEET_TRAINER_KILL_AFTER)]
+    assert warm
+    wire = []
+    for s_ in warm:
+        cats = rows[s_["step"]]["replicas"][ids["g0"]]["categories"]
+        ring_ms = s_["phases_ms"].get("ring", 0.0)
+        wire_ms = cats.get("wire", 0.0) * 1e3
+        assert abs(wire_ms - ring_ms) <= 0.02 * ring_ms + 2.0, (s_["step"], wire_ms, ring_ms)
+        assert ring_ms >= s_["baby_ms"]["round_trip_s"] - 1.0, (s_["step"], s_["baby_ms"])
+        wire.append({"step": s_["step"], "wire_ms": wire_ms,
+                     "round_trip_ms": s_["baby_ms"]["round_trip_s"],
+                     "step_ms": s_["step_ms"],
+                     "dominant": rows[s_["step"]]["dominant"],
+                     "categories_ms": {k: v * 1e3 for k, v in cats.items()}})
+    # (d)
+    journey = frep["fragment_journey"]
+    assert journey["poisoned_hop"] is None and frep["culprit"] == c, journey
+    into_g1 = [e for e in journey["journey"] if e["op"] == "fragment.hop"
+               and str(e["fields"].get("holder", "")).endswith(f":{g1['pid']}")]
+    assert into_g1 and all(e["fields"]["plane"] == "heal" and e["fields"]["verdict"] == "ok"
+                           for e in into_g1), journey
+    return {
+        "culprit": c, "failure": {k: f[k] for k in ("phase", "step", "reported_by", "detail")},
+        "replicas": {k: rep["replicas"][v]["max_step"] for k, v in ids.items()},
+        "ledger": {"steps": len(rows), "dominant_overall": ledger["dominant_overall"],
+                   "dominant_by_step": {n: rows[n]["dominant"] for n in sorted(rows)},
+                   "warm_g0": wire},
+        "fragment": {"frag": pm["fragment"], "hops": journey["hops"], "holds": journey["holds"],
+                     "into_g1_inc1": [e["fields"] for e in into_g1]},
+        "entries": rep["entries"], "warnings": rep["warnings"],
+        "diagnose_wall_s": [pm["report_wall_s"], pm["fragment_report_wall_s"]],
+    }
+
+
 def fleet_path(cfg=None, batch: int = 8, seq: int = 1024, device: str = "cuda",
                steps: int = FLEET_STEPS, timeout: float = 900.0,
-               lease_ms: int = FLEET_LEASE_MS) -> "dict":
+               lease_ms: int = FLEET_LEASE_MS, evidence_dir: "str | None" = None) -> "dict":
     """Phase 13: three lighthouse peers (the port's CLI) and the port's
     ``ReplicaGroupLauncher`` supervising two trainer processes
     (:func:`fleet_member`), each the flagship over ``ProcessGroupBabyTCP``;
     a Baby worker SIGKILLed mid-allreduce, the lighthouse leader SIGKILLed,
-    and group 1's trainer SIGKILLed and restarted.  ``cfg``/``batch``/
+    and group 1's trainer SIGKILLed and restarted.  Every incarnation
+    writes flight, event and span files, the surviving leader's timeline
+    and link matrix are saved, and the port's post-mortem CLI must name
+    what happened (:func:`check_fleet_report`).  ``cfg``/``batch``/
     ``seq``/``device`` let a CPU rehearsal drive the same code at a tiny
-    size."""
+    size; the evidence stays in ``evidence_dir`` when one is given."""
     import dataclasses
     import shutil
     import signal
@@ -4157,13 +4350,16 @@ def fleet_path(cfg=None, batch: int = 8, seq: int = 1024, device: str = "cuda",
 
     t_start = time.perf_counter()
     d = tempfile.mkdtemp(prefix="tft_fleet_")
+    ev = evidence_dir or tempfile.mkdtemp(prefix="tft_fleet_evidence_")
+    os.makedirs(ev, exist_ok=True)
     cfg_fields = None
     if cfg is not None:
         cfg_fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
         for k in ("dtype", "param_dtype"):
             if k in cfg_fields:
                 cfg_fields[k] = str(cfg_fields[k]).replace("torch.", "")
-    spec = {"dir": d, "device": device, "cfg": cfg_fields, "batch": batch, "seq": seq,
+    spec = {"dir": d, "evidence": ev, "device": device, "cfg": cfg_fields,
+            "batch": batch, "seq": seq,
             "steps": steps, "seed": FLEET_SEED, "timeout": timeout,
             "pg_timeout": min(600.0, timeout)}
     here = os.path.dirname(os.path.abspath(__file__))
@@ -4280,6 +4476,13 @@ def fleet_path(cfg=None, batch: int = 8, seq: int = 1024, device: str = "cuda",
                     f"commit {FLEET_TRAINER_KILL_AFTER}")
             time.sleep(0.1)
         restarts = launcher.restarts()
+        # the fleet's own view for the post-mortem, from the surviving leader
+        i = leader()
+        for doc in ("timeline", "links"):
+            with urllib.request.urlopen(f"http://{endpoints[i]}/{doc}.json",
+                                        timeout=10) as r:
+                with open(os.path.join(ev, f"{doc}.json"), "wb") as f:
+                    f.write(r.read())
     finally:
         if launcher is not None:
             launcher.shutdown()
@@ -4358,6 +4561,16 @@ def fleet_path(cfg=None, batch: int = 8, seq: int = 1024, device: str = "cuda",
         workers = {s["worker_pid"] for doc in (g0, g1k) for s in doc["steps"]}
         assert not (listed & workers), f"Baby workers hold a CUDA context: {apps}"
 
+    # -- the post-mortem ----------------------------------------------------
+    t_pm = time.monotonic()
+    try:
+        postmortem = fleet_postmortem(ev)
+        verdict = check_fleet_report(postmortem, g0, g1k, g1)
+    finally:
+        if evidence_dir is None:
+            shutil.rmtree(ev, ignore_errors=True)
+    verdict["wall_s"] = time.monotonic() - t_pm
+
     # -- numbers -----------------------------------------------------------
     rerun1 = rerun[0]
     first_new = next(s for s in g1["steps"] if s["committed"])
@@ -4411,6 +4624,7 @@ def fleet_path(cfg=None, batch: int = 8, seq: int = 1024, device: str = "cuda",
         "compute_apps": apps,
         "steps": [dict(s, group=doc["group"], incarnation=doc["incarnation"])
                   for doc in (g0, g1k, g1) for s in doc["steps"]],
+        "postmortem": verdict,
         "wall_s": wall,
     }
 
@@ -4449,6 +4663,74 @@ def log_fleet(card: str, fsum: dict, tcp_step_ms: "float | None") -> None:
     log(f"{card} | fleet path kernel launches in its training steps "
         f"{json.dumps(fsum['launches'])} (by incarnation "
         f"{json.dumps(fsum['launches_by_incarnation'])})")
+    pm = fsum["postmortem"]
+    log(f"{card} | fleet post-mortem (python -m torchft_tpu_torch.diagnose, "
+        f"{pm['entries']} records, runs of {pm['diagnose_wall_s'][0]:.1f} and "
+        f"{pm['diagnose_wall_s'][1]:.1f} s, {pm['wall_s']:.1f} s in all): LIKELY CULPRIT "
+        f"{pm['culprit']['replica_id']} [{pm['culprit']['signal']}]: {pm['culprit']['reason']}")
+    log(f"{card} | fleet post-mortem FAILED OP: " + json.dumps(pm["failure"])
+        + "; last step by incarnation " + json.dumps(pm["replicas"]))
+    log(f"{card} | fleet post-mortem ledger: {pm['ledger']['steps']} steps, dominant overall "
+        f"{pm['ledger']['dominant_overall']}, by step "
+        + json.dumps(pm["ledger"]["dominant_by_step"]))
+    for w in pm["ledger"]["warm_g0"]:
+        log(f"{card} | fleet post-mortem warm step {w['step']} (group 0): wire "
+            f"{w['wire_ms']:.1f} ms (Baby pipe round trip {w['round_trip_ms']:.1f} ms) of a "
+            f"{w['step_ms']:.1f} ms step, dominant {w['dominant']}; ledger ms "
+            + json.dumps({k: round(v, 1) for k, v in w["categories_ms"].items()}))
+    log(f"{card} | fleet post-mortem --fragment {pm['fragment']['frag']}: "
+        f"{pm['fragment']['hops']} hops, {pm['fragment']['holds']} holds; into group 1's "
+        "second incarnation " + json.dumps(pm["fragment"]["into_g1_inc1"])
+        + "; poisoned hop none")
+
+
+# ---------------------------------------------------------------------------
+# phases 14 and 15: the transport bench and an example on the card
+# ---------------------------------------------------------------------------
+
+TRANSPORT_GB = 1.0  # GiB of f32 tensors each transport moves
+EXAMPLE_STEPS = 20  # committed steps of examples/torch/train_ddp.py
+
+
+def transport_path(gb: float = TRANSPORT_GB, device: str = "cuda") -> dict:
+    """Phase 14: :mod:`torchft_tpu_torch.checkpointing.transport_bench`'s two
+    legs at ``gb`` GiB of tensors on ``device``; each checks every received
+    leaf bitwise."""
+    from torchft_tpu_torch.checkpointing import transport_bench as tb
+
+    t0 = time.perf_counter()
+    http = tb.bench_http(gb, 0, device)
+    pg = tb.bench_pg(gb, device)
+    return {"gb": gb, "http": http, "pg": pg, "wall_s": time.perf_counter() - t0}
+
+
+def log_transport(card: str, t: dict) -> None:
+    h, p = t["http"], t["pg"]
+    log(f"{card} | transport bench {t['gb']} GiB ({h['bytes']} B of f32 tensors on the "
+        f"card): HTTPTransport stage {h['stage_s']:.3f} s, receive {h['recv_s']:.3f} s "
+        f"({h['gbps']:.3f} GiB/s), in place {h['inplace_s']:.3f} s "
+        f"({h['inplace_gbps']:.3f} GiB/s); PGTransport over ProcessGroupTCP send and "
+        f"receive {p['total_s']:.3f} s ({p['gbps']:.3f} GiB/s), in place "
+        f"{p['inplace_s']:.3f} s ({p['inplace_gbps']:.3f} GiB/s); phase wall "
+        f"{t['wall_s']:.1f} s")
+
+
+def example_path(steps: int = EXAMPLE_STEPS, device: str = "cuda") -> dict:
+    """Phase 15: ``examples/torch/train_ddp.py --local-replicas 2`` as a
+    user runs it, on ``device``; it must exit 0 with its closing line."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, os.path.join("examples", "torch", "train_ddp.py"),
+           "--local-replicas", "2", "--steps", str(steps), "--device", device]
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, cwd=here, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    assert run.returncode == 0, (
+        f"{' '.join(cmd)} exited {run.returncode}:\n{run.stdout[-3000:]}\n{run.stderr[-3000:]}")
+    lines = run.stdout.strip().splitlines()
+    want = f"done: 2 replica groups, {steps} committed steps each on {device}"
+    assert lines and lines[-1] == want, lines[-5:]
+    return {"cmd": " ".join(cmd[1:]), "last_line": lines[-1],
+            "loss_lines": [x for x in lines if "loss=" in x], "wall_s": wall}
 
 
 def main() -> int:
@@ -4720,6 +5002,15 @@ def main() -> int:
     assert all(n == 0 for n in fl_parent_twins.values()), fl_parent_twins
     log_fleet(card, fsum, summary.get("median_step_ms"))
     log(f"fleet path on {card}: " + json.dumps(fsum))
+
+    # phases 14 and 15 launch none of the kernels, and no twin either
+    tsum, _, t_twins = drive(transport_path)
+    assert all(n == 0 for n in t_twins.values()), t_twins
+    log_transport(card, tsum)
+    esum, _, e_twins = drive(example_path)
+    assert all(n == 0 for n in e_twins.values()), e_twins
+    log(f"{card} | example {esum['cmd']}: exit 0 in {esum['wall_s']:.1f} s, last line "
+        f"{esum['last_line']!r}; " + " ".join(esum["loss_lines"][-2:]))
 
     sources = {
         "flash_fwd": ("torchft_tpu_torch/csrc/flash_fwd.cu",

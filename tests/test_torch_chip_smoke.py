@@ -72,7 +72,7 @@ def test_cp_path_rehearsal_on_cpu():
     )
     summary = chip_smoke.cp_path(cfg, batch=1, seq=256, device="cpu", timeout=120.0)
     assert summary["processes"] == 4
-    assert len(summary["steps"]) == 12  # 3 steps x 4 processes
+    assert len(summary["steps"]) == chip_smoke.CP_STEPS * 4  # steps x 4 processes
     # T_local = 128: a layer's forward shifts one K and one V chunk of
     # 128 x 1 head x 32 f32 (16 KiB each); its backward shifts K, V and
     # their f32 gradient accumulators, then the accumulators home: 8
@@ -289,12 +289,13 @@ def test_moe_serve_path_rehearsal_on_cpu():
 PHASES = (
     "Device", "Kernel check", "Main path", "Heal path", "Quantization kernels",
     "DiLoCo path", "Cold restore", "Reshard", "MoE serving", "Context parallelism",
-    "HSDP", "Pipeline and expert parallelism", "Supervised fleet",
+    "HSDP", "Pipeline and expert parallelism", "Supervised fleet", "Transport bench",
+    "Example",
 )
 
 
 def test_the_phase_list_and_the_pp_summary_keys_are_pinned():
-    """The script's phases 1-13 in order, ``main`` driving the paths'
+    """The script's phases 1-15 in order, ``main`` driving the paths'
     functions in that order, and the keys of phase 12's summary that
     ``log_pp`` and ``main`` read; phase 13's constants and trainer entry."""
     import inspect
@@ -309,7 +310,7 @@ def test_the_phase_list_and_the_pp_summary_keys_are_pinned():
     paths = re.findall(r"= drive\((\w+)\)", src)
     assert paths == ["main_path", "heal_path", "diloco_path", "cold_restore_path",
                      "reshard_path", "moe_serve_path", "cp_path", "hsdp_path", "pp_path",
-                     "fleet_path"]
+                     "fleet_path", "transport_path", "example_path"]
     # phases 12's and 13's launches join the kernels' record
     assert "pp_launches, fl_launches))" in src
     assert (chip_smoke.FLEET_STEPS, chip_smoke.FLEET_WORKER_KILL_STEP,
@@ -370,3 +371,14 @@ def test_pp_path_rehearsal_on_cpu():
         [f"g{g}r{r}" for g in range(2) for r in range(4)]
         + [f"g1r{r}_killed" for r in range(4)])
     assert all(n > 0 for n in summary["twin_calls"].values())
+
+
+def test_transport_and_example_paths_rehearsal_on_cpu():
+    """Phases 14 and 15 at a tiny size on the CPU: both transport legs at 2
+    MiB (each received leaf checked bitwise by the bench), and
+    examples/torch/train_ddp.py run as a user runs it, for two steps."""
+    t = chip_smoke.transport_path(gb=2 / 1024, device="cpu")
+    assert t["http"]["bytes"] == t["pg"]["bytes"] == 2 << 20
+    chip_smoke.log_transport("cpu", t)
+    e = chip_smoke.example_path(steps=2, device="cpu")
+    assert e["last_line"] == "done: 2 replica groups, 2 committed steps each on cpu"

@@ -267,6 +267,60 @@ def test_initialize_multihost_over_a_tcp_store():
     assert multihost.run_ranks(rank, 2, timeout=60.0) == [3.0, 3.0]
 
 
+@pytest.mark.parametrize("failing", [{1: 1}, {0: 1, 3: 2}])
+def test_a_gloo_group_whose_handshake_fails_on_a_rank_is_built_again(monkeypatch, failing):
+    """Gloo's full-mesh handshake failed on one rank of a loaded host
+    ("Connection closed by peer" from a peer that did not fail): every rank
+    of the group then builds it again, and the group works.  ``failing``
+    maps a rank to how many of its constructions raise."""
+    real = multihost.dist.ProcessGroupGloo
+    left = dict(failing)
+    built = []
+    lock = threading.Lock()
+
+    def flaky(store, rank, size, timeout):
+        with lock:
+            fail = left.get(rank, 0) > 0
+            if fail:
+                left[rank] -= 1
+        built.append(rank)
+        if fail:
+            raise RuntimeError("Gloo connectFullMesh failed with ... Connection closed by peer")
+        return real(store, rank, size, timeout)
+
+    monkeypatch.setattr(multihost.dist, "ProcessGroupGloo", flaky)
+    worlds = multihost.local_worlds(4, timeout=3.0)
+
+    def rank(r):
+        group = worlds[r].new_group("dp", range(4))
+        axis = MeshAxis("dp", group, r, 4)
+        x = torch.tensor([r + 1.0])
+        axis.psum_([x])
+        return x.item()
+
+    assert multihost.run_ranks(rank, 4, timeout=60.0) == [10.0] * 4
+    assert len(built) == 4 * (1 + max(failing.values()))
+
+
+def test_a_gloo_group_that_never_builds_raises_on_every_rank(monkeypatch):
+    def broken(store, rank, size, timeout):
+        raise RuntimeError("Gloo connectFullMesh failed")
+
+    monkeypatch.setattr(multihost.dist, "ProcessGroupGloo", broken)
+    worlds = multihost.local_worlds(2, timeout=3.0)
+    errors = []
+
+    def rank(r):
+        try:
+            worlds[r].new_group("dp", range(2))
+        except RuntimeError as e:
+            errors.append(str(e))
+
+    multihost.run_ranks(rank, 2, timeout=60.0)
+    assert len(errors) == 2
+    assert all(f"failed {multihost.GLOO_CONNECT_ATTEMPTS} times" in e for e in errors)
+
+
 def _free_port():
     import socket
 

@@ -13,10 +13,18 @@ by the launcher (it heals live from group 0 and trains to the end).  The
 phase itself asserts all of that, the two groups bitwise equal at the end
 (parameters, AdamW state, sampler state), an int8 quantized allreduce over
 the Baby equal on both groups and within the codec's bound, no Baby worker
-holding the card and no segment left in ``/dev/shm``.
+holding the card and no segment left in ``/dev/shm``.  Every incarnation
+writes flight, event and span files; the port's post-mortem CLI, run by the
+phase over them and the surviving leader's timeline and link matrix, names
+what happened (``chip_smoke.check_fleet_report``), and the JAX package's
+CLI gives the same ``--json`` report on the same files.
 """
 
+import json
+import os
 import signal
+import subprocess
+import sys
 
 import pytest
 import torch
@@ -40,14 +48,15 @@ def _time_limit():
     signal.signal(signal.SIGALRM, old)
 
 
-def test_fleet_path_rehearsal_on_cpu():
+def test_fleet_path_rehearsal_on_cpu(tmp_path):
     cfg = tf.TransformerConfig(
         vocab_size=4096, d_model=64, n_heads=2, n_kv_heads=1, d_ff=128,
         n_layers=2, max_seq_len=128, dtype=torch.float32, remat=False,
         attn_impl="flash",
     )
     summary = chip_smoke.fleet_path(cfg, batch=2, seq=128, device="cpu",
-                                    timeout=200.0, lease_ms=500)
+                                    timeout=200.0, lease_ms=500,
+                                    evidence_dir=str(tmp_path))
     assert summary["codes"] == {0: 0, 1: 0}
     assert summary["restarts"] == {0: 0, 1: 1}
     steps = summary["steps"]
@@ -76,5 +85,40 @@ def test_fleet_path_rehearsal_on_cpu():
             "shm_peak_bytes", "worker_kill", "leader_kill", "trainer_kill",
             "pg_configure_ms", "workers", "host_rss_gb", "peak_memory_gb", "quantized",
             "launches", "launches_by_incarnation", "twin_calls", "compute_apps",
-            "wall_s"} <= set(summary)
+            "postmortem", "wall_s"} <= set(summary)
     chip_smoke.log_fleet("cpu", summary, None)
+    # the post-mortem: one flight dump (with its .prov companion), event
+    # file and span file per incarnation
+    for inc in ("g0_inc0", "g1_inc0", "g1_inc1"):
+        for suffix in chip_smoke.FLEET_SINKS.values():
+            assert (tmp_path / f"{inc}{suffix}").stat().st_size > 0, (inc, suffix)
+        assert (tmp_path / f"{inc}.flight.jsonl.prov").exists()
+    pm = summary["postmortem"]
+    assert pm["culprit"]["replica_id"].startswith("fleet_group1:")
+    assert pm["failure"]["step"] == chip_smoke.FLEET_WORKER_KILL_STEP
+    assert pm["replicas"] == {"g0": chip_smoke.FLEET_STEPS,
+                              "g1_inc0": chip_smoke.FLEET_TRAINER_KILL_AFTER,
+                              "g1_inc1": chip_smoke.FLEET_STEPS}
+    assert pm["fragment"]["into_g1_inc1"]
+    # the JAX package's diagnose gives the same reports on the same files
+    argv = [a for a in open(tmp_path / "argv.txt").read().split("\n") if a]
+    frag = pm["fragment"]["frag"]
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    for name, extra in (("report", []), ("fragment_report", ["--fragment", frag])):
+        jax_run = subprocess.run(
+            [sys.executable, "-m", "torchft_tpu.diagnose", *argv, *extra],
+            capture_output=True, text=True,
+            cwd=os.path.dirname(os.path.abspath(chip_smoke.__file__)), env=env, timeout=120)
+        assert jax_run.returncode == 0, jax_run.stderr[-2000:]
+        want = json.loads(jax_run.stdout)
+        got = json.loads((tmp_path / f"{name}.json").read_text())
+        # on a tie between the ledger's categories the JAX package's overall
+        # category follows its string hash seed; the port's is the tied
+        # category with more seconds (tests/test_torch_diagnose.py)
+        dominants = [s["dominant"] for s in want["trace_ledger"]["steps"] if s["dominant"]]
+        top = max(map(dominants.count, dominants))
+        tied = {d for d in dominants if dominants.count(d) == top}
+        if len(tied) > 1:
+            assert got["trace_ledger"].pop("dominant_overall") in tied
+            want["trace_ledger"].pop("dominant_overall")
+        assert got == want

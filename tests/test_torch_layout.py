@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from torchft_tpu.parallel import layout as jl
 from torchft_tpu_torch.coordination import LighthouseServer
 from torchft_tpu_torch.local_sgd import DiLoCo, LocalSGD, OuterSGD
@@ -212,6 +213,13 @@ def test_shrink_fixture_replays_with_torch_tensors():
         FaultRule(site="train.step", replica="rs_3", step=golden["kill_step"])
     ])
     lh = LighthouseServer(min_replicas=1, join_timeout_ms=100, heartbeat_timeout_ms=1000)
+    # Without a hold, min_replicas=1 and the 100 ms join timeout let the
+    # first quorum form before a group thread slow to start has joined, and
+    # that group joins a step late (tests/test_diagnose.py:410-417 holds
+    # its first quorum the same way).
+    holder = threading.Thread(target=chip_smoke.hold_first_quorum,
+                              args=(lh.address(), 4, 60.0), daemon=True)
+    holder.start()
     groups = [
         _Group(i, lh.address(), golden["total_steps"],
                die_at=golden["kill_step"] if i == 3 else None)
@@ -224,6 +232,7 @@ def test_shrink_fixture_replays_with_torch_tensors():
         deadline = time.monotonic() + 120
         for t in threads:
             t.join(timeout=max(deadline - time.monotonic(), 0.1))
+        holder.join(timeout=max(deadline - time.monotonic(), 0.1))
         assert not any(t.is_alive() for t in threads), "fleet wedged mid-switch"
     finally:
         faults.FAULTS.configure([])

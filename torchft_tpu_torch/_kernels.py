@@ -1,10 +1,13 @@
 """Build and bind the port's hand-written CUDA kernels (``csrc/*.cu``).
 
 Each ``.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into its own shared
-library with a plain C interface under ``build/kernels/`` (gitignored), on
-first use, from the sources in this checkout only; all sources compile at
-once, one ``nvcc`` each.  The libraries are loaded with ``ctypes``: tensors
-pass as ``data_ptr()`` integers, the stream as
+library with a plain C interface under ``build/kernels/`` of the checkout
+(gitignored), on first use, from the sources beside this module only; all
+sources compile at once, one ``nvcc`` each.  An installed package, or a
+checkout whose ``build/`` cannot be written, builds into a per-user cache
+directory instead (:func:`_build_dir`); a failed build raises, it never
+falls back to the kernels' plain twins.  The libraries are loaded with
+``ctypes``: tensors pass as ``data_ptr()`` integers, the stream as
 ``torch.cuda.current_stream().cuda_stream``, and every C entry point returns
 ``cudaGetLastError()`` after its launch, which :func:`check` turns into a
 ``RuntimeError``.
@@ -33,7 +36,27 @@ from torchft_tpu_torch.utils import buildlock
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
+
+
+def _build_dir(pkg_dir: str = _PKG_DIR) -> str:
+    """``build/kernels`` of the checkout that holds ``pkg_dir`` (its parent
+    has ``pyproject.toml``) when it can be written or made there; else
+    ``torchft_tpu_torch/kernels`` under the user's cache directory
+    (``$XDG_CACHE_HOME``, default ``~/.cache``)."""
+    root = os.path.dirname(pkg_dir)
+    local = os.path.join(root, "build", "kernels")
+    if os.path.exists(os.path.join(root, "pyproject.toml")):
+        probe = local
+        while not os.path.exists(probe):
+            probe = os.path.dirname(probe)
+        if os.access(probe, os.W_OK | os.X_OK):
+            return local
+    cache = os.environ.get("XDG_CACHE_HOME") or os.path.join(
+        os.path.expanduser("~"), ".cache")
+    return os.path.join(cache, "torchft_tpu_torch", "kernels")
+
+
+BUILD_DIR = _build_dir()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

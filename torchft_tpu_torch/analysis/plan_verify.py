@@ -44,7 +44,7 @@ The runtime complement is :func:`check_live` — behind
 monotone-epoch commit point (reduction plan build, serving
 tree_commit, stripe resolution), counting verdicts in
 ``torchft_plan_verify_total{plane,verdict}`` and emitting a
-``plan.verify`` flight record so ``torchft-diagnose`` can name a bad
+``plan.verify`` flight record so ``torchft-torch-diagnose`` can name a bad
 plan (signal ``bad_plan``).  The hook OBSERVES — a rejected plan is
 loud telemetry, never a wedge.
 """

@@ -38,7 +38,7 @@ process-local half of that answer:
   FlightRecorder` ring (``TORCHFT_FRAG_RING``, default 1024) — same
   ~1 us/record budget discipline, same JSONL dump format, dumped
   crash-durably *alongside* ``TORCHFT_FLIGHT_FILE`` (``<path>.prov``)
-  via the flight recorder's companion hook.  ``torchft-diagnose
+  via the flight recorder's companion hook.  ``torchft-torch-diagnose
   --fragment <id>`` replays a fragment's whole journey from these dumps
   alone and names the hop where a mismatch first entered
   (``poisoned_hop``).

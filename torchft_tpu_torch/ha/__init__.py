@@ -9,7 +9,7 @@ takeover on expiry), and point every client at the full list —
 leader-only RPCs with a ``NOT_LEADER`` redirect naming the current
 holder; ``LighthouseClient`` and the native manager's lighthouse client
 walk the list and follow redirects transparently, so ``Manager``,
-serving replicas/clients and ``torchft-diagnose`` need no changes to
+serving replicas/clients and ``torchft-torch-diagnose`` need no changes to
 survive a lighthouse death.
 
 Because lighthouse state is soft (heartbeats and serving registrations

@@ -51,17 +51,57 @@ class GroupWorld:
         built directly under a store prefix of its own (never the default
         group); every rank in ``ranks`` must call it."""
         ranks = list(ranks)
-        store = dist.PrefixStore(
-            f"tft_group/{key}/{'_'.join(map(str, ranks))}", self.store)
+        prefix = f"tft_group/{key}/{'_'.join(map(str, ranks))}"
         rank, size = ranks.index(self.rank), len(ranks)
         timeout = timedelta(seconds=self.timeout)
         if self.backend == "gloo":
-            return dist.ProcessGroupGloo(store, rank, size, timeout)
+            return _new_gloo_group(self.store, prefix, rank, size, timeout)
+        store = dist.PrefixStore(prefix, self.store)
         if self.backend == "nccl":
             opts = dist.ProcessGroupNCCL.Options()
             opts._timeout = timeout
             return dist.ProcessGroupNCCL(store, rank, size, opts)
         raise ValueError(f"unknown backend {self.backend!r}; expected 'gloo' or 'nccl'")
+
+
+#: Times the ranks of a gloo group try its full-mesh handshake before the
+#: construction fails.
+GLOO_CONNECT_ATTEMPTS = 3
+
+
+def _new_gloo_group(
+    store: Any, prefix: str, rank: int, size: int, timeout: timedelta
+) -> Any:
+    """A gloo group of ``size`` ranks under ``prefix``; every rank calls it.
+
+    Gloo connects every pair of ranks while the group is built.  On a loaded
+    host that handshake sometimes fails on one rank: it reads end-of-file
+    from a peer that did not fail ("Connection closed by peer"), while the
+    other ranks' handshakes complete or time out.  So each rank publishes
+    whether its construction succeeded, and the ranks build the group again
+    under a fresh prefix until all of them have it."""
+    err: "Optional[RuntimeError]" = None
+    for attempt in range(GLOO_CONNECT_ATTEMPTS):
+        sub = dist.PrefixStore(f"{prefix}/attempt{attempt}", store)
+        try:
+            pg, err = dist.ProcessGroupGloo(sub, rank, size, timeout), None
+        except RuntimeError as e:  # the handshake; the group is rebuilt below
+            pg, err = None, e
+        sub.set(f"built/{rank}", "1" if err is None else "0")
+        keys = [f"built/{r}" for r in range(size)]
+        # a rank whose handshake failed fast waits for the others, which may
+        # wait out their own connect timeout for it before they fail
+        sub.wait(keys, 2 * timeout)
+        if all(sub.get(k) == b"1" for k in keys):
+            return pg
+        logger.warning(
+            "gloo group %s: the handshake failed on a rank (attempt %d of %d)%s",
+            prefix, attempt + 1, GLOO_CONNECT_ATTEMPTS,
+            f": {err}" if err is not None else "",
+        )
+    raise RuntimeError(
+        f"gloo group {prefix}: the handshake failed {GLOO_CONNECT_ATTEMPTS} times"
+    ) from err
 
 
 def _default_backend(num_processes: int) -> str:

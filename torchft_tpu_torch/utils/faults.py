@@ -384,7 +384,7 @@ class FaultRegistry:
         try:
             from torchft_tpu_torch.utils import flightrecorder as _fr
 
-            # fault-tagged flight record: torchft-diagnose attributes a
+            # fault-tagged flight record: torchft-torch-diagnose attributes a
             # chaos-killed replica from exactly this tag
             extra = {} if step is None else {"step": step}
             _fr.record(

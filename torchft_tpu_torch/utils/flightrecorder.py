@@ -407,6 +407,6 @@ def install_signal_hooks(signals: "Optional[List[int]]" = None) -> bool:
 
 # A process that configures a dump sink wants the signal legs armed too:
 # SIGTERM is how schedulers kill replicas, and the dying flight ring is
-# exactly the evidence torchft-diagnose needs.
+# exactly the evidence torchft-torch-diagnose needs.
 if env_str("TORCHFT_FLIGHT_FILE"):
     install_signal_hooks()

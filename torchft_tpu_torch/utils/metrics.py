@@ -1207,7 +1207,7 @@ FRAG_HOPS = counter(
     "Fragment transfers audited by the provenance plane, by transfer "
     "plane (serving/heal/restore) and digest verdict (ok / mismatch / "
     "torn) — a nonzero mismatch or torn count is a poisoned-fragment "
-    "signal (triage with torchft-diagnose --fragment)",
+    "signal (triage with torchft-torch-diagnose --fragment)",
     ("plane", "verdict"),
 )
 FRAG_STAMP_AGE = gauge(

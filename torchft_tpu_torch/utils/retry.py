@@ -160,7 +160,7 @@ class RetryPolicy:
                     delay = min(delay, max(deadline - time.monotonic(), 0.0))
                 _metrics.RETRIES.labels(op=op).inc()
                 _metrics.RETRY_BACKOFF.labels(op=op).observe(delay)
-                # flight record per retry: torchft-diagnose flags retry
+                # flight record per retry: torchft-torch-diagnose flags retry
                 # storms (many of these in a short window) as a culprit
                 # signal
                 _flightrec.record(

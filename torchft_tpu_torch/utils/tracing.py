@@ -8,7 +8,7 @@ utils/metrics.py), grown from the PR-1 single-process span tree into
   ``(JOB_ID, step)``), so every replica group, the lighthouse, and both
   heal endpoints land in ONE trace per training step without any
   coordination RPC — the property the cross-replica critical-path ledger
-  (``torchft-diagnose --trace``) joins on.
+  (``torchft-torch-diagnose --trace``) joins on.
 - **Causal propagation** rides a W3C-traceparent-style context
   (:class:`TraceContext`: ``trace_id``, ``span_id``, sampled flag)
   carried as the ``traceparent`` envelope field of every framed-JSON RPC
