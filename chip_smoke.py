@@ -249,6 +249,27 @@ Phases, any failure exits non-zero:
     as threads with a lighthouse of its own); it must exit 0 with its
     closing line.
 
+16. Invariants: the port's analysis suite, run as subprocesses from this
+    tree: ``python -m torchft_tpu_torch.analysis torchft_tpu_torch/`` and
+    its ``--selftest`` (0 findings, empty baselines), then
+    ``python -m torchft_tpu_torch.analysis.verify_cli`` in full (every
+    scenario, the mutation gate, liveness, the plan verifier, wire drift;
+    exit 0) and ``--mutate heal_from_stale --dump`` (exit 1), whose
+    counterexample ``python -m torchft_tpu_torch.diagnose --json`` must pin
+    on the violating replica in phase ``heal_recv``.  The static
+    vocabularies are held against what phases 3-15 emitted: their phase
+    names against the Manager's ``PROTOCOL_PHASES`` (itself its literal
+    ``_record_phase`` set), phase 13's span names against ``span-vocab``'s,
+    the registry's metric names against ``metrics-sync``'s naming and
+    documentation rule.  Last, two FT-DDP groups as threads at the
+    flagship's widths cut to ``INVARIANT_LAYERS`` (2) layers, bf16, kernels
+    A-C, train ``INVARIANT_STEPS`` (4) steps under the runtime lock-order
+    checker (``lockcheck.set_enabled(True)`` first), group 1 shutting down
+    after step 2 and healing over PGTransport: every step must commit and
+    no lock-order cycle may appear.  Prints each part's wall, the
+    verifier's states and transitions per scenario, the counts and the
+    lock-hold outliers.
+
 The last two lines are the kernels' JSON record and the device JSON.
 """
 
@@ -260,6 +281,7 @@ import json
 import math
 import os
 import queue
+import re
 import statistics
 import subprocess
 import sys
@@ -2172,12 +2194,22 @@ def moe_serve_path(cfg=None, batch: int = 8, seq: int = 1024, device: str = "cud
         rec["aux"] = sum(float(s_["aux"]) for s_ in stats)
         rec["dropped"] = [round(float(s_["dropped"]), 5) for s_ in stats]
         rec["publish"] = manager.publish_info()
+        # pace the trainers, not the check: version v - 1 went out at this
+        # step's quorum (the Manager publishes a commit at the next one),
+        # so the client holds every version before group 0 goes on
+        if v >= 2:
+            wait_for(lambda: client_holds(v - 1), f"the client to hold v{v - 1}")
         if v == kill_after + 1:
             wait_for(lambda: leaf.version() >= kill_after, f"the leaf to serve v{kill_after}")
             kill.update(version=leaf.version(), failovers_before=relay_failovers.get())
             root.shutdown()
             kill["at"] = time.time()
             log(f"  root relay {root_id} shut down after the leaf served v{kill['version']}")
+
+    def client_holds(version: int) -> bool:
+        if client_f.done():
+            client_f.result()  # a failed client fails the phase here
+        return any(f["version"] >= version for f in fetched)
 
     def client_loop() -> None:
         while True:
@@ -3148,12 +3180,26 @@ def _hsdp_rank(gid: int, rank: int, life: int, cfg, batch: int, seq: int, device
         manager.shutdown()
 
 
-def hsdp_worker(gid: int, rank: int, life: int, args: tuple, park, results) -> None:
+def _log_to(path: str) -> None:
+    """Send this process's output (file descriptors 1 and 2, so native
+    code's and its libraries' too) to ``path``."""
+    sys.stdout.flush()
+    sys.stderr.flush()
+    fd = os.open(path, os.O_WRONLY | os.O_CREAT | os.O_APPEND, 0o644)
+    os.dup2(fd, 1)
+    os.dup2(fd, 2)
+    os.close(fd)
+
+
+def hsdp_worker(gid: int, rank: int, life: int, args: tuple, park, results,
+                log_path: str) -> None:
     """The target of a phase-11 process: runs :func:`_hsdp_rank` and puts
     ``("ok", gid, rank, summary)`` or ``("error", gid, rank, traceback)``
     on ``results``; an error also exits non-zero.  A process that is to be
     killed reports on ``park`` instead: a pipe of its own, which holds no
-    lock that the kill could leave taken (a ``Queue`` does)."""
+    lock that the kill could leave taken (a ``Queue`` does).  Its output
+    goes to ``log_path``."""
+    _log_to(log_path)
     try:
         results.put(("ok", gid, rank, _hsdp_rank(gid, rank, life, *args, park)))
     except BaseException:  # noqa: BLE001 - reported to the parent, re-raised
@@ -3170,9 +3216,14 @@ def killed_group_run(phase: str, worker, size: int, kill_after: int, args: tuple
     ``kill_after``-th commit; once all have reported, they are SIGKILLed and
     restarted (``life`` 1) with a fresh coordinator.  Any child's failure
     or non-zero exit raises; children still running at the end are killed.
-    Returns ``(results by (gid, rank), parked reports by rank, seconds into
-    the phase of the kill, wall seconds)``."""
+    Each child writes its whole output to a file of its own: the phase
+    prints them all after the run, and a failure raises with every
+    process's state at that moment and its whole log.  Returns ``(results
+    by (gid, rank), parked reports by rank, seconds into the phase of the
+    kill, wall seconds)``."""
     import multiprocessing as mp
+    import shutil
+    import tempfile
 
     from torchft_tpu_torch.coordination import LighthouseServer, StoreServer
 
@@ -3184,6 +3235,7 @@ def killed_group_run(phase: str, worker, size: int, kill_after: int, args: tuple
     results = ctx.Queue()
     procs: "dict" = {}
     parks: "dict" = {}
+    logdir = tempfile.mkdtemp(prefix=f"tft_{phase}_logs_")
     t_start = time.perf_counter()
     alloc_env = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
@@ -3193,14 +3245,16 @@ def killed_group_run(phase: str, worker, size: int, kill_after: int, args: tuple
         for rank in range(size):
             full = args + (lighthouse.address(), stores[gid].address(), coordinator)
             recv, send = ctx.Pipe(duplex=False)
-            p = ctx.Process(target=worker, args=(gid, rank, life, full, send, results),
-                            name=f"{phase}_g{gid}r{rank}_life{life}", daemon=True)
+            name = f"{phase}_g{gid}r{rank}_life{life}"
+            p = ctx.Process(target=worker, args=(gid, rank, life, full, send, results,
+                                                 os.path.join(logdir, f"{name}.log")),
+                            name=name, daemon=True)
             p.start()
             send.close()
             procs[(gid, rank, life)] = p
             parks[(gid, rank, life)] = recv
 
-    out, parked, killed_at = {}, {}, None
+    out, parked, killed_at, failure, states = {}, {}, None, None, {}
     try:
         for gid in range(2):
             spawn(gid, 0)
@@ -3240,6 +3294,12 @@ def killed_group_run(phase: str, worker, size: int, kill_after: int, args: tuple
             p.join(max(1.0, deadline - time.monotonic()))
             if p.exitcode != 0:
                 raise RuntimeError(f"{phase} path process {p.name} exited with {p.exitcode}")
+    except BaseException as e:  # noqa: BLE001 - re-raised below with the logs
+        failure = e
+        states = {p.name: ("SIGKILLed by the phase" if k[0] == 1 and k[2] == 0
+                           and killed_at is not None else
+                           "running" if p.is_alive() else f"exited {p.exitcode}")
+                  for k, p in sorted(procs.items())}
     finally:
         if alloc_env is None:
             os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
@@ -3254,6 +3314,18 @@ def killed_group_run(phase: str, worker, size: int, kill_after: int, args: tuple
         lighthouse.shutdown()
         for s in stores:
             s.shutdown()
+        logs = {}
+        for k, p in sorted(procs.items()):
+            with contextlib.suppress(OSError), open(os.path.join(logdir, f"{p.name}.log")) as f:
+                logs[p.name] = f.read()
+        shutil.rmtree(logdir, ignore_errors=True)
+    if failure is not None:
+        report = "\n".join(f"  {name}: {state}" for name, state in states.items())
+        whole = "".join(f"\n----- {name} -----\n{text}" for name, text in logs.items())
+        raise RuntimeError(f"{failure}\n----- process states at the failure -----\n"
+                           f"{report}{whole}") from failure
+    for name, text in logs.items():
+        log(f"----- {name} -----\n{text.rstrip()}")
     return out, parked, killed_at, time.perf_counter() - t_start
 
 
@@ -3742,9 +3814,11 @@ def _pp_rank(gid: int, rank: int, life: int, cfg, batch: int, seq: int, device: 
         manager.shutdown()
 
 
-def pp_worker(gid: int, rank: int, life: int, args: tuple, park, results) -> None:
+def pp_worker(gid: int, rank: int, life: int, args: tuple, park, results,
+              log_path: str) -> None:
     """The target of a phase-12 process, as :func:`hsdp_worker` is phase
     11's."""
+    _log_to(log_path)
     try:
         results.put(("ok", gid, rank, _pp_rank(gid, rank, life, *args, park)))
     except BaseException:  # noqa: BLE001 - reported to the parent, re-raised
@@ -4340,6 +4414,7 @@ def fleet_path(cfg=None, batch: int = 8, seq: int = 1024, device: str = "cuda",
     ``seq``/``device`` let a CPU rehearsal drive the same code at a tiny
     size; the evidence stays in ``evidence_dir`` when one is given."""
     import dataclasses
+    import glob
     import shutil
     import signal
     import tempfile
@@ -4563,9 +4638,13 @@ def fleet_path(cfg=None, batch: int = 8, seq: int = 1024, device: str = "cuda",
 
     # -- the post-mortem ----------------------------------------------------
     t_pm = time.monotonic()
+    spans = sorted(glob.glob(os.path.join(ev, "g*_inc*.trace.jsonl")))
     try:
         postmortem = fleet_postmortem(ev)
         verdict = check_fleet_report(postmortem, g0, g1k, g1)
+        if evidence_dir is None:  # phase 16 reads the span files
+            keep = tempfile.mkdtemp(prefix="tft_fleet_spans_")
+            spans = [shutil.copy(p, keep) for p in spans]
     finally:
         if evidence_dir is None:
             shutil.rmtree(ev, ignore_errors=True)
@@ -4625,6 +4704,7 @@ def fleet_path(cfg=None, batch: int = 8, seq: int = 1024, device: str = "cuda",
         "steps": [dict(s, group=doc["group"], incarnation=doc["incarnation"])
                   for doc in (g0, g1k, g1) for s in doc["steps"]],
         "postmortem": verdict,
+        "span_files": spans,
         "wall_s": wall,
     }
 
@@ -4733,6 +4813,298 @@ def example_path(steps: int = EXAMPLE_STEPS, device: str = "cuda") -> dict:
             "loss_lines": [x for x in lines if "loss=" in x], "wall_s": wall}
 
 
+# ---------------------------------------------------------------------------
+# phase 16: invariants — the analysis suite over the port, and a lock-checked
+# FT-DDP run
+# ---------------------------------------------------------------------------
+
+INVARIANT_LAYERS = 2  # the flagship's widths, depth cut for the lock-checked run
+INVARIANT_STEPS = 4  # committed steps of the lock-checked run
+INVARIANT_KILL_AFTER = 2  # group 1 shuts down after this step and heals
+#: what a scenario, sub-model or plan line of ``tft-torch-verify`` prints
+_VERIFY_LINE = re.compile(
+    r"^(\S+)\s+(ok|VIOLATION)\s+(?:states=(\d+) transitions=(\d+) goals=(\d+)|plans=(\d+))")
+_VIOLATED = re.compile(r"invariant (\S+) violated by (\S+) in phase (\S+):")
+#: summary keys whose dicts are keyed by the Manager's phase names
+_PHASE_KEYS = ("survivor_phases_ms", "rejoiner_phases_ms", "phases_ms", "phases")
+
+
+def _run_module(args: "list", cwd: str, timeout: float = 600.0) -> "tuple":
+    """``python -m <args>`` from ``cwd``: its completed process and wall."""
+    t0 = time.monotonic()
+    run = subprocess.run([sys.executable, "-m", *args], cwd=cwd, capture_output=True,
+                         text=True, timeout=timeout)
+    return run, time.monotonic() - t0
+
+
+def summary_phase_names(obj) -> set:
+    """The phase names in a path summary's ``phase_times()`` views: the keys
+    of every dict held under one of ``_PHASE_KEYS``, at any depth."""
+    names: set = set()
+    if isinstance(obj, dict):
+        for k, v in obj.items():
+            if k in _PHASE_KEYS and isinstance(v, dict):
+                names |= set(v)
+            names |= summary_phase_names(v)
+    elif isinstance(obj, (list, tuple)):
+        for v in obj:
+            names |= summary_phase_names(v)
+    return names
+
+
+def recorded_phase_names() -> set:
+    """The literal first arguments of the port Manager's ``_record_phase``
+    calls."""
+    import ast
+    import inspect
+
+    from torchft_tpu_torch import manager as mgr
+
+    return {n.args[0].value for n in ast.walk(ast.parse(inspect.getsource(mgr)))
+            if isinstance(n, ast.Call) and isinstance(n.func, ast.Attribute)
+            and n.func.attr == "_record_phase" and n.args
+            and isinstance(n.args[0], ast.Constant)}
+
+
+def lockcheck_run(cfg, batch: int, seq: int, device: str, steps: int, kill_after: int,
+                  trace_file: str) -> dict:
+    """Phase 16 (d): two FT-DDP groups as threads, as phase 3's, with every
+    lock the run creates checked (``lockcheck.set_enabled(True)`` before
+    anything is built; module-level locks were made at import, before the
+    switch, and stay plain) and its spans written to ``trace_file``.
+    Group 1 shuts down after step ``kill_after``, restarts from a fresh
+    init and heals over PGTransport; both run to ``steps``.  Every step
+    must commit and no lock-order cycle may be seen.  The gate is restored
+    afterwards."""
+    import torch
+
+    from torchft_tpu_torch.coordination import LighthouseServer
+    from torchft_tpu_torch.utils import lockcheck, tracing
+
+    on_card = device == "cuda"
+    compute = threading.Lock()
+    was = lockcheck.enabled()
+    lockcheck.set_enabled(True)
+    lockcheck.reset()
+    tracing.install_tracer(tracing.Tracer(sink=tracing.FileSpanSink(trace_file)))
+    t_start = time.perf_counter()
+    try:
+        lighthouse = LighthouseServer(min_replicas=2, join_timeout_ms=100,
+                                      heartbeat_timeout_ms=5000)
+
+        def group(gid: int, seed: int, stop_at: int) -> dict:
+            return ddp_group(gid, seed, stop_at, cfg, batch, seq, device,
+                             lighthouse.address(), compute, True, "lockcheck step")
+
+        ex = ThreadPoolExecutor(max_workers=3)
+        try:
+            survivor_f = ex.submit(group, 0, 0, steps)
+            first = ex.submit(group, 1, 0, kill_after).result(timeout=900)
+            del first["model"], first["opt"]
+            if on_card:
+                gc.collect()
+                torch.cuda.empty_cache()
+            rejoiner = ex.submit(group, 1, 12345, steps).result(timeout=900)
+            survivor = survivor_f.result(timeout=900)
+        finally:
+            ex.shutdown(wait=False)
+            lighthouse.shutdown()
+    finally:
+        tracing.uninstall_tracer()
+        lockcheck.set_enabled(was)
+    wall = time.perf_counter() - t_start
+    cycles, outliers = lockcheck.cycles(), lockcheck.hold_outliers()
+    edges = lockcheck.edges()
+    runs = {"group0": survivor, "group1": first, "group1_healed": rejoiner}
+    for name, r in runs.items():
+        assert all(s_["committed"] for s_ in r["steps"]), f"{name}: a step failed"
+    assert survivor["final_step"] == rejoiner["final_step"] == steps
+    assert first["final_step"] == kill_after and len(rejoiner["steps"]) == steps - kill_after
+    assert rejoiner["phases"].get("heal_recv", 0.0) > 0.0, "the restarted group did not heal"
+    assert cycles == [], f"lock-order cycles: {cycles}"
+    params = dict(survivor["model"].named_parameters())
+    assert all(torch.equal(p, params[n]) for n, p in rejoiner["model"].named_parameters())
+    return {
+        "layers": cfg.n_layers, "steps": steps, "kill_after": kill_after,
+        "step_ms": {name: [round(s_["step_ms"], 1) for s_ in r["steps"]]
+                    for name, r in runs.items()},
+        "heal_recv_ms": rejoiner["phases"]["heal_recv"] * 1e3,
+        "survivor_phases_ms": {k: v * 1e3 for k, v in survivor["phases"].items()},
+        "rejoiner_phases_ms": {k: v * 1e3 for k, v in rejoiner["phases"].items()},
+        "cycles": cycles, "hold_outliers": outliers,
+        "edges": {k: sorted(v) for k, v in edges.items()},
+        "wall_s": wall,
+    }
+
+
+def invariants_path(summaries: "list | None" = None, span_files: "list | None" = None,
+                    cfg=None, batch: int = 8, seq: int = 1024,
+                    device: str = "cuda") -> dict:
+    """Phase 16: (a) ``python -m torchft_tpu_torch.analysis torchft_tpu_torch/``
+    and its ``--selftest``, each exiting 0 with no finding; (b)
+    ``python -m torchft_tpu_torch.analysis.verify_cli`` in full (every
+    scenario, the mutation gate, liveness, the plan verifier, wire drift)
+    exiting 0, then ``--mutate heal_from_stale --dump``, exiting 1, whose
+    counterexample the port's ``diagnose --json`` must pin on the violating
+    replica in phase ``heal_recv``; (c) the static vocabularies against what
+    the run emitted: every phase name in the earlier paths' ``summaries``
+    is in the port Manager's ``PROTOCOL_PHASES``, which equals its literal
+    ``_record_phase`` names; every span name in ``span_files`` (phase 13's)
+    and in (d)'s own span file is in ``span-vocab``'s vocabulary; every
+    metric in the port's registry at the phase's start is ``torchft_*`` and
+    documented, as ``metrics-sync`` requires; (d) :func:`lockcheck_run` at
+    the flagship's widths cut to ``INVARIANT_LAYERS`` layers.  The CLIs run
+    as subprocesses from this script's tree, the lint, its selftest, the
+    verifier and the counterexample (then its diagnose) at once, each its
+    wall measured alone; their exit codes decide."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from torchft_tpu_torch.analysis import PASSES, span_vocab
+    from torchft_tpu_torch.analysis.core import Project
+    from torchft_tpu_torch.analysis.metrics_sync import _OBSERVABILITY_DOC
+    from torchft_tpu_torch.manager import PROTOCOL_PHASES
+    from torchft_tpu_torch.utils import metrics as tm
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    t_start = time.perf_counter()
+    metric_names = sorted(m.name for m in tm.REGISTRY.metrics())
+    out: dict = {}
+    tmp = tempfile.mkdtemp(prefix="tft_invariants_")
+    try:
+        # -- (a) and (b): the four CLI runs at once (each its own process) --
+        dump = os.path.join(tmp, "cex.jsonl")
+
+        def counterexample() -> tuple:
+            run, wall = _run_module(["torchft_tpu_torch.analysis.verify_cli", "--mutate",
+                                     "heal_from_stale", "--dump", dump], here)
+            if run.returncode != 1 or not os.path.exists(dump):
+                return run, wall, None, 0.0
+            diag, diag_wall = _run_module(["torchft_tpu_torch.diagnose", dump, "--json"], here)
+            return run, wall, diag, diag_wall
+
+        t_cli = time.monotonic()
+        with ThreadPoolExecutor(max_workers=4) as ex:
+            lint_f = ex.submit(_run_module, ["torchft_tpu_torch.analysis", "torchft_tpu_torch/"],
+                               here)
+            self_f = ex.submit(_run_module, ["torchft_tpu_torch.analysis", "--selftest"], here)
+            verify_f = ex.submit(_run_module, ["torchft_tpu_torch.analysis.verify_cli"], here)
+            cex_f = ex.submit(counterexample)
+            (run, wall), (srun, swall) = lint_f.result(), self_f.result()
+            vrun, vwall = verify_f.result()
+            crun, cwall, diag, diag_wall = cex_f.result()
+        out["clis_wall_s"] = time.monotonic() - t_cli
+
+        # (a) the lint
+        assert run.returncode == 0, f"tft-torch-lint exited {run.returncode}:\n{run.stdout}"
+        summary = run.stdout.strip().splitlines()[-1]
+        assert summary.startswith(f"tft-lint: 0 finding(s) across {len(PASSES)} pass(es)"), summary
+        out["lint"] = {"summary": summary, "wall_s": wall}
+        oks = [ln for ln in srun.stdout.splitlines() if ln.endswith(": ok")]
+        assert srun.returncode == 0 and len(oks) == len(PASSES), srun.stdout + srun.stderr
+        out["lint_selftest"] = {"passes": len(oks), "wall_s": swall}
+        log(f"  invariants: tft-torch-lint {summary!r} in {wall:.1f} s; --selftest "
+            f"{len(oks)} passes ok in {swall:.1f} s")
+
+        # (b) the verifier
+        assert vrun.returncode == 0, f"tft-torch-verify exited {vrun.returncode}:\n{vrun.stdout}"
+        scenarios = {}
+        for line in vrun.stdout.splitlines():
+            m = _VERIFY_LINE.match(line)
+            if m:
+                assert m.group(2) == "ok", line
+                scenarios[m.group(1)] = ({"plans": int(m.group(6))} if m.group(6) else {
+                    "states": int(m.group(3)), "transitions": int(m.group(4)),
+                    "goals": int(m.group(5))})
+        lines = vrun.stdout.splitlines()
+        caught = [ln for ln in lines if ln.startswith(("mutation ", "plan mutation "))]
+        schedules = [ln for ln in lines if ln.startswith("schedule ")]
+        assert caught and all(" caught " in ln for ln in caught), caught
+        assert schedules and all(" ok " in ln for ln in schedules), schedules
+        assert "wire drift: 0 finding(s)" in lines, lines[-3:]
+        out["verify"] = {"scenarios": scenarios, "mutations_caught": len(caught),
+                         "schedules_ok": len(schedules), "wall_s": vwall}
+        for name, r in scenarios.items():
+            log(f"  invariants: verify {name}: {json.dumps(r)}")
+        log(f"  invariants: tft-torch-verify exit 0 in {vwall:.1f} s: {len(scenarios)} "
+            f"scenarios clean, {len(caught)} mutations caught, {len(schedules)} schedules "
+            "live, wire drift 0")
+        m = _VIOLATED.search(crun.stdout)
+        assert crun.returncode == 1 and m and diag is not None, crun.stdout + crun.stderr
+        invariant, replica, model_phase = m.groups()
+        assert diag.returncode == 0, diag.stderr[-3000:]
+        rep = json.loads(diag.stdout)
+        assert rep["culprit"]["replica_id"] == replica, rep["culprit"]
+        assert rep["failure"]["reported_by"] == replica, rep["failure"]
+        assert rep["failure"]["phase"] == "heal_recv", rep["failure"]
+        out["counterexample"] = {
+            "invariant": invariant, "replica": replica, "model_phase": model_phase,
+            "culprit": rep["culprit"]["replica_id"], "signal": rep["culprit"].get("signal"),
+            "failure_phase": rep["failure"]["phase"], "verify_wall_s": cwall,
+            "diagnose_wall_s": diag_wall}
+        log(f"  invariants: --mutate heal_from_stale exit 1 ({invariant} violated by "
+            f"{replica} in {model_phase}); diagnose names {rep['culprit']['replica_id']} "
+            f"({rep['culprit'].get('signal')}), failed phase {rep['failure']['phase']}; "
+            f"the four CLI runs at once took {out['clis_wall_s']:.1f} s")
+
+        # -- (d) lock order at runtime ----------------------------------------------
+        if cfg is None:
+            cfg = dataclasses.replace(flagship_config(), n_layers=INVARIANT_LAYERS)
+        own_spans = os.path.join(tmp, "lockcheck.trace.jsonl")
+        lc = lockcheck_run(cfg, batch, seq, device, INVARIANT_STEPS, INVARIANT_KILL_AFTER,
+                           own_spans)
+        out["lockcheck"] = lc
+        log(f"  invariants: lock-checked FT-DDP ({lc['layers']} layers, {lc['steps']} steps, "
+            f"group 1 healed after step {lc['kill_after']} in {lc['heal_recv_ms']:.1f} ms): "
+            f"steps ms {json.dumps(lc['step_ms'])}; cycles {lc['cycles']}; hold outliers "
+            f"(torchft_lock_hold_outliers_total) {json.dumps(lc['hold_outliers'])}; "
+            f"order edges {json.dumps(lc['edges'])}")
+
+        # -- (c) the vocabularies against what ran --------------------------------
+        phases = summary_phase_names(list(summaries or []) + [lc])
+        literal = recorded_phase_names()
+        assert literal == set(PROTOCOL_PHASES), sorted(literal ^ set(PROTOCOL_PHASES))
+        assert phases <= set(PROTOCOL_PHASES), sorted(phases - set(PROTOCOL_PHASES))
+        spans: dict = {}
+        for path in list(span_files or []) + [own_spans]:
+            with open(path) as f:
+                for line in f:
+                    if line.strip():
+                        name = json.loads(line)["name"]
+                        spans[name] = spans.get(name, 0) + 1
+        off = sorted(n for n in spans if not span_vocab._allowed(n, set(PROTOCOL_PHASES)))
+        assert spans and not off, f"span names outside the vocabulary: {off}"
+        doc = Project(here, []).doc_text_for(_OBSERVABILITY_DOC)
+        bad = [n for n in metric_names if not n.startswith("torchft_") or n not in doc]
+        assert metric_names and not bad, f"metrics off the naming or docs rule: {bad}"
+        out["vocabulary"] = {
+            "phases_seen": sorted(phases), "protocol_phases": len(PROTOCOL_PHASES),
+            "span_files": len(span_files or []) + 1, "spans": sum(spans.values()),
+            "span_names": spans, "metrics": len(metric_names)}
+        log(f"  invariants: {len(phases)} phase names in the summaries, all among the "
+            f"Manager's {len(PROTOCOL_PHASES)} (its literal _record_phase set); "
+            f"{sum(spans.values())} spans of {len(spans)} names in {len(span_files or []) + 1} "
+            f"files, all in the span vocabulary; {len(metric_names)} registry metrics, all "
+            "torchft_* and documented")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t_start
+    return out
+
+
+def log_invariants(card: str, isum: dict) -> None:
+    """Phase 16's numbers, each line beside the card's name and power limit."""
+    lc = isum["lockcheck"]
+    log(f"{card} | invariants: the CLIs at once {isum['clis_wall_s']:.1f} s (lint "
+        f"{isum['lint']['wall_s']:.1f} s, lint selftest "
+        f"{isum['lint_selftest']['wall_s']:.1f} s, verify {isum['verify']['wall_s']:.1f} s, "
+        f"counterexample {isum['counterexample']['verify_wall_s']:.1f} + diagnose "
+        f"{isum['counterexample']['diagnose_wall_s']:.1f} s), lock-checked FT-DDP "
+        f"{lc['wall_s']:.1f} s (steps ms {json.dumps(lc['step_ms'])}, hold outliers "
+        f"{json.dumps(lc['hold_outliers'])}); phase wall {isum['wall_s']:.1f} s")
+
+
 def main() -> int:
     try:
         import torch
@@ -4812,9 +5184,9 @@ def main() -> int:
              pq.quantize_int8_plain, pq.dequantize_int8_plain,
              pq.reduce_int8_plain)
 
-    def drive(path) -> "tuple":
-        """Run one main path with every count at 0; its launches and twin
-        calls, read just after."""
+    def drive(path, *args) -> "tuple":
+        """Run one main path (on ``args``) with every count at 0; its
+        launches and twin calls, read just after."""
         log(f"host memory before {path.__name__}: {release_host_memory():.2f} GB resident; "
             f"the script at {time.monotonic() - T_START:.1f} s")
         for fn in counters:
@@ -4822,7 +5194,7 @@ def main() -> int:
         for fn in twins:
             fn.calls = 0
         t0 = time.monotonic()
-        summary = path()
+        summary = path(*args)
         t1 = time.monotonic()
         log(f"host memory after {path.__name__}: {host_rss_gb():.2f} GB resident; "
             f"{t1 - t0:.1f} s of wall, the script at {t1 - T_START:.1f} s")
@@ -5012,6 +5384,23 @@ def main() -> int:
     log(f"{card} | example {esum['cmd']}: exit 0 in {esum['wall_s']:.1f} s, last line "
         f"{esum['last_line']!r}; " + " ".join(esum["loss_lines"][-2:]))
 
+    # phase 16 launches A, B and C in its lock-checked FT-DDP run; the
+    # analysis suite launches none
+    try:
+        isum, i_launches, i_twins = drive(
+            invariants_path, [summary, hsum, dsum, csum, rsum, msum, cpsum, hdsum, ppsum,
+                              fsum, tsum, esum], fsum["span_files"])
+    finally:
+        import shutil
+
+        for kept in {os.path.dirname(p) for p in fsum["span_files"]}:
+            shutil.rmtree(kept, ignore_errors=True)
+    log(f"invariants launches {i_launches}, plain twin calls {i_twins}")
+    assert all(i_launches[k] > 0 for k in ("flash_fwd", "flash_bwd_kv", "flash_bwd_q")), i_launches
+    assert all(n == 0 for n in i_twins.values()), i_twins
+    log_invariants(card, isum)
+    log(f"invariants path on {card}: " + json.dumps(isum))
+
     sources = {
         "flash_fwd": ("torchft_tpu_torch/csrc/flash_fwd.cu",
                       "torchft_tpu/ops/flash_attention.py:67"),
@@ -5030,7 +5419,7 @@ def main() -> int:
     for part in ("max_abs", "times", "bounds", "library"):
         checks[part] = {**kernels[part], **quant[part]}
     # launches: the DDP, heal, DiLoCo, cold-restore, reshard, MoE serving,
-    # cp, HSDP, pp and fleet paths' runs together (each counted from 0; the
+    # cp, HSDP, pp, fleet and invariants paths' runs together (each counted from 0; the
     # cp, HSDP, pp and fleet paths' in the training steps of their
     # processes, without the step-0 references and planted faults, the
     # fleet's D in its trainers' int8 allreduce); E and F have no caller on any
@@ -5039,7 +5428,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": sum(run.get(name, 0) for run in (
                 launches, h_launches, d_launches, c_launches, r_launches,
-                m_launches, cp_launches, hd_launches, pp_launches, fl_launches)),
+                m_launches, cp_launches, hd_launches, pp_launches, fl_launches))
+            + i_launches.get(name, 0),
             "max_abs_err": checks["max_abs"][name],
             "ms": checks["times"][name][0],
             "plain_ms": checks["times"][name][1],

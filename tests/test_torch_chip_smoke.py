@@ -6,6 +6,7 @@ import os
 import shutil
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import pytest
 import torch
@@ -290,14 +291,15 @@ PHASES = (
     "Device", "Kernel check", "Main path", "Heal path", "Quantization kernels",
     "DiLoCo path", "Cold restore", "Reshard", "MoE serving", "Context parallelism",
     "HSDP", "Pipeline and expert parallelism", "Supervised fleet", "Transport bench",
-    "Example",
+    "Example", "Invariants",
 )
 
 
 def test_the_phase_list_and_the_pp_summary_keys_are_pinned():
-    """The script's phases 1-15 in order, ``main`` driving the paths'
+    """The script's phases 1-16 in order, ``main`` driving the paths'
     functions in that order, and the keys of phase 12's summary that
-    ``log_pp`` and ``main`` read; phase 13's constants and trainer entry."""
+    ``log_pp`` and ``main`` read; phase 13's constants and trainer entry;
+    phase 16's depth and steps."""
     import inspect
     import re
 
@@ -307,10 +309,10 @@ def test_the_phase_list_and_the_pp_summary_keys_are_pinned():
     for i, name in enumerate(PHASES, 1):
         assert re.search(rf"^ ?{i}\. {name}", doc, re.M), name
     src = inspect.getsource(chip_smoke.main)
-    paths = re.findall(r"= drive\((\w+)\)", src)
+    paths = re.findall(r"= drive\(\s*(\w+)[,)]", src)
     assert paths == ["main_path", "heal_path", "diloco_path", "cold_restore_path",
                      "reshard_path", "moe_serve_path", "cp_path", "hsdp_path", "pp_path",
-                     "fleet_path", "transport_path", "example_path"]
+                     "fleet_path", "transport_path", "example_path", "invariants_path"]
     # phases 12's and 13's launches join the kernels' record
     assert "pp_launches, fl_launches))" in src
     assert (chip_smoke.FLEET_STEPS, chip_smoke.FLEET_WORKER_KILL_STEP,
@@ -320,6 +322,10 @@ def test_the_phase_list_and_the_pp_summary_keys_are_pinned():
     assert "log_fleet(card, fsum" in src
     assert chip_smoke.PP_INNER == {"pp": 2, "ep": 2} and chip_smoke.PP_MICROBATCHES == 4
     assert chip_smoke.moe_config().n_layers == 2 and chip_smoke.moe_config().d_model == 1536
+    assert (chip_smoke.INVARIANT_LAYERS, chip_smoke.INVARIANT_STEPS,
+            chip_smoke.INVARIANT_KILL_AFTER) == (2, 4, 2)
+    # phase 16's launches join the kernels' record too
+    assert "+ i_launches.get(name, 0)," in src
 
 
 def test_pp_path_rehearsal_on_cpu():
@@ -382,3 +388,196 @@ def test_transport_and_example_paths_rehearsal_on_cpu():
     chip_smoke.log_transport("cpu", t)
     e = chip_smoke.example_path(steps=2, device="cpu")
     assert e["last_line"] == "done: 2 replica groups, 2 committed steps each on cpu"
+
+
+def test_a_rank_wired_to_a_reused_stale_address_follows_its_group_server():
+    """A restarted group's non-zero rank reads the killed incarnation's
+    server address from the group's store before the new rank 0 republishes
+    it; on a busy host another process's listener can hold that port, so
+    the construction probe takes it.  Once that listener is gone the rank's
+    quorum RPC met refused connections for its whole connect budget (the
+    pp x ep rehearsal's failure under load); now its client re-reads the
+    store on a refusal, follows the new server, and takes its replica id."""
+    import socket
+
+    from torchft_tpu_torch import Manager
+    from torchft_tpu_torch.coordination import LighthouseServer, StoreClient, StoreServer
+    from torchft_tpu_torch.parallel.process_group import ProcessGroupDummy
+
+    lighthouse = LighthouseServer(min_replicas=1, join_timeout_ms=100)
+    store = StoreServer()
+    sc = StoreClient(store.address())
+    foreign = socket.create_server(("127.0.0.1", 0))
+    stale = f"127.0.0.1:{foreign.getsockname()[1]}"
+    sc.set("replica_id", "grp:killed-incarnation")
+    sc.set("manager_addr", stale)
+    managers = []
+
+    def manager(rank):
+        m = Manager(
+            pg=ProcessGroupDummy(), min_replica_size=1, load_state_dict=lambda sd: None,
+            state_dict=lambda: {}, lighthouse_addr=lighthouse.address(), replica_id="grp",
+            group_rank=rank, group_world_size=2, store_addr=store.address(),
+            connect_timeout=3.0, timeout=30.0, quorum_timeout=30.0,
+            use_async_quorum=False,
+        )
+        managers.append(m)
+        return m
+
+    def quorum(m):
+        m.start_quorum()
+        m.wait_quorum()
+        return m.errored()
+
+    try:
+        rank1 = manager(1)
+        assert rank1._client.address() == stale  # the probe took the listener
+        foreign.close()
+        rank0 = manager(0)
+        with ThreadPoolExecutor(max_workers=2) as ex:
+            errors = [f.result(timeout=60) for f in [ex.submit(quorum, m) for m in (rank0, rank1)]]
+        assert errors == [None, None], errors
+        assert rank1._client.address() == rank0._manager_server.address()
+        assert rank1.replica_id() == rank0.replica_id() != "grp:killed-incarnation"
+    finally:
+        for m in managers:
+            m.shutdown(wait=False)
+        foreign.close()
+        sc.close()
+        store.shutdown()
+        lighthouse.shutdown()
+
+
+def _group_of_two(lighthouse, store, connect_timeout=3.0):
+    """Rank 0 then rank 1 of one replica group's Managers."""
+    from torchft_tpu_torch import Manager
+    from torchft_tpu_torch.parallel.process_group import ProcessGroupDummy
+
+    return [Manager(
+        pg=ProcessGroupDummy(), min_replica_size=1, load_state_dict=lambda sd: None,
+        state_dict=lambda: {}, lighthouse_addr=lighthouse.address(), replica_id="grp",
+        group_rank=rank, group_world_size=2, store_addr=store.address(),
+        connect_timeout=connect_timeout, timeout=30.0, quorum_timeout=30.0,
+        use_async_quorum=False) for rank in range(2)]
+
+
+@pytest.mark.parametrize("rank1_leaves", [True, False])
+def test_rank0_keeps_the_group_server_until_every_rank_has_left(rank1_leaves):
+    """The pp x ep rehearsal's failure under the whole suite's load: the
+    restarted group's rank 2 lost its last ``should_commit`` reply
+    ("connection closed by peer") because rank 0, its own decision in hand,
+    had finished and stopped the group's ManagerServer; rank 2 abstained
+    from the committed step and its next quorum met refused connections.
+    Now rank 0's shutdown keeps the server until every rank has left, or
+    for ``connect_timeout`` when one never does."""
+    import threading
+    import time
+
+    from torchft_tpu_torch import Manager
+    from torchft_tpu_torch.coordination import LighthouseServer, StoreServer
+
+    lighthouse = LighthouseServer(min_replicas=1, join_timeout_ms=100)
+    store = StoreServer()
+    rank0, rank1 = _group_of_two(lighthouse, store)
+    addr = rank0._manager_server.address()
+    t0 = time.monotonic()
+    leaving = threading.Thread(target=rank0.shutdown)
+    try:
+        leaving.start()
+        time.sleep(1.0)
+        assert leaving.is_alive() and Manager._endpoint_alive(addr)
+        if rank1_leaves:
+            rank1.shutdown()
+        leaving.join(timeout=10)
+        assert not leaving.is_alive()
+        waited = time.monotonic() - t0
+        assert waited < 2.5 if rank1_leaves else 3.0 <= waited < 6.0, waited
+        assert not Manager._endpoint_alive(addr)
+    finally:
+        if not rank1_leaves:
+            rank1.shutdown(wait=False)
+        store.shutdown()
+        lighthouse.shutdown()
+
+
+def test_a_failed_killed_group_run_reports_every_process_and_its_whole_log():
+    """When a process of phase 11's or 12's orchestration fails, the error
+    names every process's state at that moment and carries each one's whole
+    output, not a tail."""
+    with pytest.raises(RuntimeError) as info:
+        chip_smoke.killed_group_run("demo", _demo_worker, 2, 1, (), timeout=60.0)
+    text = str(info.value)
+    assert "demo path process g0r1 failed" in text and "rank 1 gives up" in text
+    assert "----- process states at the failure -----" in text
+    for gid in range(2):
+        for rank in range(2):
+            name = f"demo_g{gid}r{rank}_life0"
+            assert f"----- {name} -----" in text
+            # every line the process wrote, the first as the last
+            assert all(f"{name} line {i}" in text for i in range(200)), name
+
+
+def _demo_worker(gid, rank, life, args, park, results, log_path):
+    """A process of :func:`test_a_failed_killed_group_run_reports_every_process_and_its_whole_log`:
+    writes 200 lines; group 0's rank 1 fails once all four logs hold theirs,
+    the others wait."""
+    import glob
+    import time as _time
+
+    chip_smoke._log_to(log_path)
+    for i in range(200):
+        print(f"demo_g{gid}r{rank}_life{life} line {i}", flush=True)
+    if (gid, rank) == (0, 1):
+        logs = os.path.join(os.path.dirname(log_path), "*.log")
+        deadline = _time.monotonic() + 50
+        while _time.monotonic() < deadline and sum(
+                open(f).read().count("\n") >= 200 for f in glob.glob(logs)) < 4:
+            _time.sleep(0.05)
+        results.put(("error", gid, rank, "rank 1 gives up"))
+        return
+    _time.sleep(60)
+
+
+def test_invariants_path_rehearsal_on_cpu():
+    """Phase 16 on the CPU: the lint and its selftest, the verifier in full
+    and its counterexample through the port's diagnose, all as subprocesses
+    over this tree; the vocabularies against a summary and the lock-checked
+    run's own spans; and that run at a tiny f32 width on ``device="cpu"``
+    (kernel twins), every step committed, no lock-order cycle, the
+    lock-check gate as it was before."""
+    from torchft_tpu_torch.utils import lockcheck
+
+    was = lockcheck.enabled()
+    summaries = [{"survivor_phases_ms": {"quorum_rpc": 1.0, "ring": 2.0},
+                  "steps": [{"phases_ms": {"heal_wire": 1.0, "commit": 0.5}}]}]
+    isum = chip_smoke.invariants_path(summaries, [], cfg=_tiny(), batch=1, seq=128,
+                                      device="cpu")
+    assert lockcheck.enabled() == was
+    assert isum["lint"]["summary"].startswith("tft-lint: 0 finding(s) across 9 pass(es)")
+    assert isum["lint_selftest"]["passes"] == 9
+    scen = isum["verify"]["scenarios"]
+    assert {"steady", "churn", "votes", "resize", "election", "restore", "plan"} <= set(scen)
+    assert scen["steady"] == {"states": 39, "transitions": 50, "goals": 5}
+    assert isum["verify"]["mutations_caught"] == 14 + 11
+    ce = isum["counterexample"]
+    assert ce["invariant"] == "heal-source-max-step" and ce["failure_phase"] == "heal_recv"
+    assert ce["culprit"] == ce["replica"]
+    lc = isum["lockcheck"]
+    assert lc["cycles"] == [] and lc["steps"] == 4
+    assert len(lc["step_ms"]["group0"]) == 4 and len(lc["step_ms"]["group1_healed"]) == 2
+    voc = isum["vocabulary"]
+    assert {"quorum_rpc", "ring", "heal_wire", "commit", "heal_recv"} <= set(voc["phases_seen"])
+    assert voc["spans"] > 0 and "quorum_round" in voc["span_names"]
+    assert voc["metrics"] > 0
+
+
+def test_invariants_path_rejects_a_phase_outside_the_vocabulary():
+    """A summary phase the Manager does not declare fails phase 16's check
+    (the helper it uses), as does a recorded-phase set that drifts."""
+    names = chip_smoke.summary_phase_names(
+        [{"x": {"phases_ms": {"ring": 1.0, "made_up": 2.0}}}, {"phases": {"commit": 1}}])
+    assert names == {"ring", "made_up", "commit"}
+    from torchft_tpu_torch.manager import PROTOCOL_PHASES
+
+    assert chip_smoke.recorded_phase_names() == set(PROTOCOL_PHASES)
+    assert not names <= set(PROTOCOL_PHASES)

@@ -1,6 +1,7 @@
-"""The port's packaging: ``pyproject.toml`` ships its CUDA sources and
-declares its console scripts and an optional ``torch`` dependency group
-beside the JAX package's entries, which stay as they were; each port
+"""The port's packaging: ``pyproject.toml`` ships its CUDA sources, its
+analysis baselines and wire-schema lock, and declares its console scripts
+and an optional ``torch`` dependency group beside the JAX package's
+entries, which stay as they were; each port
 script's ``--help`` exits 0 without importing JAX; and the kernels build in
 the checkout's ``build/kernels`` or, where that cannot be written, in a
 per-user cache directory."""
@@ -19,6 +20,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_SCRIPTS = {
     "torchft-torch-lighthouse": "torchft_tpu_torch.lighthouse:main",
     "torchft-torch-diagnose": "torchft_tpu_torch.diagnose:main",
+    "tft-torch-lint": "torchft_tpu_torch.analysis.cli:main",
+    "tft-torch-verify": "torchft_tpu_torch.analysis.verify_cli:main",
 }
 
 
@@ -35,7 +38,10 @@ def test_the_cuda_sources_are_package_data(project):
                for p in glob.glob(os.path.join(csrc, pat))}
     sources = {os.path.relpath(p, csrc) for p in glob.glob(os.path.join(csrc, "csrc", "*"))
                if p.endswith((".cu", ".cuh"))}
-    assert sources and sources == shipped
+    # the analysis suite's baselines (one a pass) and its wire-schema lock
+    analysis = {os.path.relpath(p, csrc) for p in glob.glob(
+        os.path.join(csrc, "analysis", "baselines", "*.txt"))} | {"analysis/protocol.lock"}
+    assert sources and len(analysis) == 10 and sources | analysis == shipped
     # every kernel's source is among them, and the sdist carries them too
     assert {f"csrc/{src}" for src, _, _ in _kernels.KERNELS.values()} <= shipped
     manifest = open(os.path.join(REPO, "MANIFEST.in")).read()

@@ -33,6 +33,7 @@ import time
 from typing import Dict, List, Optional
 
 from torchft_tpu_torch.utils import buildlock
+from torchft_tpu_torch.utils.env import env_str
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -51,7 +52,7 @@ def _build_dir(pkg_dir: str = _PKG_DIR) -> str:
             probe = os.path.dirname(probe)
         if os.access(probe, os.W_OK | os.X_OK):
             return local
-    cache = os.environ.get("XDG_CACHE_HOME") or os.path.join(
+    cache = env_str("XDG_CACHE_HOME") or os.path.join(
         os.path.expanduser("~"), ".cache")
     return os.path.join(cache, "torchft_tpu_torch", "kernels")
 
@@ -99,7 +100,7 @@ build_log: "Dict[str, str]" = {}
 
 def _nvcc() -> str:
     for cand in (
-        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+        os.path.join(env_str("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
         shutil.which("nvcc"),
     ):
         if cand and os.path.exists(cand):

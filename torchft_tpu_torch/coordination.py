@@ -26,7 +26,7 @@ import threading
 import time
 from dataclasses import dataclass, field
 from datetime import timedelta
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 from torchft_tpu_torch import _native
 from torchft_tpu_torch.utils import faults as _faults
@@ -251,17 +251,25 @@ class _RpcClient:
         addr: str,
         connect_timeout: float = 10.0,
         fault_site: "Optional[str]" = None,
+        resolve: "Optional[Callable[[], str]]" = None,
     ) -> None:
-        self._addr = addr
         self._connect_timeout = connect_timeout
         self._fault_site = fault_site
+        # ``resolve``: where the server is published now; asked after each
+        # refused connect, so a client wired to a server that moved (a
+        # restarted one) follows it within one connect budget
+        self._resolve = resolve
         self._sock: Optional[socket.socket] = None
         self._lock = threading.Lock()
-        # link-state plane (utils/linkstats.py): every round trip on this
-        # connection is one rpc-plane RTT sample against the peer host —
-        # resolved once here, not per call
+        self._set_addr(addr)
+
+    def _set_addr(self, addr: str) -> None:
         from torchft_tpu_torch.utils.hostident import local_host_identities
 
+        self._addr = addr
+        # link-state plane (utils/linkstats.py): every round trip on this
+        # connection is one rpc-plane RTT sample against the peer host —
+        # resolved once per address, not per call
         host, _port = parse_host_port(addr)
         self._link_host = host or "unknown"
         self._link_local = self._link_host in local_host_identities()
@@ -269,13 +277,27 @@ class _RpcClient:
     def _host_port(self) -> "tuple[str, int]":
         return parse_host_port(self._addr)
 
-    def _connect(self, deadline: float) -> socket.socket:
-        host, port = self._host_port()
+    def _follow(self) -> None:
+        """After a refused connect: take the address ``resolve`` returns
+        (a resolver that fails leaves the address as it is)."""
+        try:
+            addr = self._resolve()  # type: ignore[misc]
+        except Exception:  # noqa: BLE001 - keep dialing the old address
+            return
+        if addr and addr != self._addr:
+            self._set_addr(addr)
 
+    def _connect(self, deadline: float) -> socket.socket:
         def attempt(budget: "Optional[float]") -> socket.socket:
-            sock = socket.create_connection(
-                (host, port), timeout=min(budget if budget else 5.0, 5.0)
-            )
+            host, port = self._host_port()
+            try:
+                sock = socket.create_connection(
+                    (host, port), timeout=min(budget if budget else 5.0, 5.0)
+                )
+            except OSError:
+                if self._resolve is not None:
+                    self._follow()
+                raise
             sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
             return sock
 
@@ -1206,14 +1228,22 @@ class LighthouseClient:
 class ManagerClient:
     """Client for ManagerServer. Reference: src/lib.rs:153-281."""
 
-    def __init__(self, addr: str, connect_timeout: "float | timedelta" = 10.0) -> None:
+    def __init__(
+        self,
+        addr: str,
+        connect_timeout: "float | timedelta" = 10.0,
+        resolve: "Optional[Callable[[], str]]" = None,
+    ) -> None:
         ct = (
             connect_timeout.total_seconds()
             if isinstance(connect_timeout, timedelta)
             else connect_timeout
         )
-        self._addr = addr
-        self._client = _RpcClient(addr, ct)
+        self._client = _RpcClient(addr, ct, resolve=resolve)
+
+    def address(self) -> str:
+        """The server address this client dials now."""
+        return self._client._addr
 
     def _quorum(
         self,

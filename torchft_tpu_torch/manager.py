@@ -88,6 +88,9 @@ T = TypeVar("T")
 
 MANAGER_ADDR_KEY = "manager_addr"
 REPLICA_ID_KEY = "replica_id"
+#: ``<LEAVE_KEY>/<replica id>/<group rank>``: that rank has left the group's
+#: ManagerServer (see ``Manager._leave_group``)
+LEAVE_KEY = "manager_leave"
 
 #: Canonical per-step phase vocabulary recorded by ``_record_phase`` (the
 #: quorum_duration histogram labels, flight-recorder phase records, and
@@ -360,7 +363,16 @@ class Manager:
         # before manager_addr, so a live addr implies the matching
         # incarnation's id is already visible
         self._replica_id = store.get(REPLICA_ID_KEY, timeout=self._connect_timeout)
-        self._client = ManagerClient(addr, connect_timeout=self._connect_timeout)
+        # A live listener at the probed address need not be this group's
+        # server: on a busy host another process can hold the dead
+        # incarnation's port while the new rank 0 has not yet republished.
+        # So a non-zero rank's client re-reads the store whenever its
+        # server refuses a connection, and follows a republished address.
+        self._client = ManagerClient(
+            addr,
+            connect_timeout=self._connect_timeout,
+            resolve=None if self._group_rank == 0 else self._published_manager_addr,
+        )
         store.close()
 
         self._logger = ReplicaLogger(self, self._replica_id, self._group_rank)
@@ -434,6 +446,25 @@ class Manager:
             if attach is not None:
                 attach(self._frag_store)
             self._spiller = fragment_store.StoreSpiller(self._frag_store)
+
+    def _published_manager_addr(self) -> str:
+        """The group's ManagerServer address as the store holds it now; on a
+        change, this Manager takes the matching incarnation's replica id
+        (rank 0 publishes the id first)."""
+        store = StoreClient(self._store_addr, connect_timeout=self._connect_timeout)
+        try:
+            addr = store.get(MANAGER_ADDR_KEY, timeout=self._connect_timeout)
+            if addr != self._client.address():
+                replica_id = store.get(REPLICA_ID_KEY, timeout=self._connect_timeout)
+                self._logger.warning(
+                    f"manager server at {self._client.address()} refused; the "
+                    f"store now publishes {addr} ({replica_id}): following it"
+                )
+                self._replica_id = replica_id
+                self._logger = ReplicaLogger(self, replica_id, self._group_rank)
+            return addr
+        finally:
+            store.close()
 
     @staticmethod
     def _endpoint_alive(addr: str, probe_timeout: float = 1.0) -> bool:
@@ -1059,11 +1090,20 @@ class Manager:
                 # resolution, reassembly) under the legacy heal_recv
                 # name, so ledger sums stay exact and never double-count
                 # a split phase against its umbrella.
+                # Each name is a literal, so span-vocab can check it.
                 heal_phases = heal_info.get("phases") or {}
-                for name in ("heal_manifest", "heal_diff", "heal_wire",
-                             "heal_decode"):
-                    if name in heal_phases:
-                        self._record_phase(name, heal_phases[name])
+                if "heal_manifest" in heal_phases:
+                    self._record_phase(
+                        "heal_manifest", heal_phases["heal_manifest"]
+                    )
+                if "heal_diff" in heal_phases:
+                    self._record_phase("heal_diff", heal_phases["heal_diff"])
+                if "heal_wire" in heal_phases:
+                    self._record_phase("heal_wire", heal_phases["heal_wire"])
+                if "heal_decode" in heal_phases:
+                    self._record_phase(
+                        "heal_decode", heal_phases["heal_decode"]
+                    )
                 self._record_phase(
                     "heal_recv",
                     max(
@@ -1847,6 +1887,7 @@ class Manager:
         # Final committed step's weight version, if a publisher is
         # attached: drain before the transports die.
         self._flush_pending_publish(wait=True)
+        self._leave_group()
         legs = [
             lambda: self._checkpoint_transport.shutdown(wait=wait),
             self._client.close,
@@ -1865,6 +1906,31 @@ class Manager:
             for t in threads:
                 t.join(timeout=5.0)
         self._executor.shutdown(wait=wait)
+
+    def _leave_group(self) -> None:
+        """The ranks of a group leave its ManagerServer together: each marks
+        its leave in the group's store, and rank 0 stops the server only
+        once every other rank has, or after ``connect_timeout``.  Rank 0
+        takes its last ``should_commit`` decision as soon as the barrier
+        releases; stopping the server then can close a peer's connection
+        before that peer's reply is written, and the peer abstains from a
+        step its group committed, its next quorum finding no server."""
+        if self._group_world_size == 1:
+            return
+        prefix = f"{LEAVE_KEY}/{self._replica_id}/"
+        store = StoreClient(self._store_addr, connect_timeout=self._connect_timeout)
+        try:
+            if self._group_rank != 0:
+                store.set(prefix + str(self._group_rank), "1")
+                return
+            deadline = time.monotonic() + self._connect_timeout
+            for rank in range(1, self._group_world_size):
+                store.get(prefix + str(rank),
+                          timeout=max(deadline - time.monotonic(), 0.001))
+        except Exception as e:  # noqa: BLE001 - a rank that is gone: leave anyway
+            self._logger.warning(f"leaving the group without every rank: {e}")
+        finally:
+            store.close()
 
     def __enter__(self) -> "Manager":
         return self
