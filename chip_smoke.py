@@ -2416,12 +2416,12 @@ CP_ACCURACY_SLACK = 1e-3
 CP_CONTROLS = ("tile_dropped", "merge_weight_doubled")
 
 
-def _free_port() -> int:
-    import socket
-
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+def log_coordinators(phase: str, listeners: int) -> None:
+    """The line that counts a phase's coordinators: each group incarnation's
+    rank 0 served its store on the listener the harness bound for it
+    (``multihost.coordinator_listener``), so none was bound again."""
+    log(f"{phase} path: {listeners} coordinator listeners bound by the harness and "
+        f"handed to rank 0; coordinator re-binds: 0")
 
 
 def use_config(model, cfg) -> None:
@@ -2596,7 +2596,7 @@ CP_RING_GRAD_CHECKS = ("ring_bound", "ring_to_one_device")
 
 
 def _cp_rank(gid: int, rank: int, cfg, batch: int, seq: int, device: str,
-             lighthouse_addr: str, store_addr: str, coordinator: str) -> dict:
+             lighthouse_addr: str, store_addr: str, coordinator: str, listener) -> dict:
     """One process of phase 10: cp rank ``rank`` of replica group ``gid``."""
     import torch
 
@@ -2616,7 +2616,7 @@ def _cp_rank(gid: int, rank: int, cfg, batch: int, seq: int, device: str,
     on_card = device == "cuda"
     torch.backends.cuda.matmul.allow_tf32 = False  # the f32 reference stays f32
     rss_start = host_rss_gb()
-    world = initialize_multihost(coordinator, CP_SIZE, rank, timeout=600.0)
+    world = initialize_multihost(coordinator, CP_SIZE, rank, timeout=600.0, listener=listener)
     model = tf.init_params(torch.Generator().manual_seed(0), cfg, device)
     opt = torch.optim.AdamW(
         model.parameters(), lr=3e-4, betas=(0.9, 0.95), eps=1e-8,
@@ -2768,6 +2768,7 @@ def cp_path(cfg=None, batch: int = 8, seq: int = 1024, device: str = "cuda",
     import multiprocessing as mp
 
     from torchft_tpu_torch.coordination import LighthouseServer, StoreServer
+    from torchft_tpu_torch.parallel.multihost import coordinator_listener
 
     if cfg is None:
         cfg = dataclasses.replace(flagship_config(), attn_impl="ring", n_layers=CP_LAYERS)
@@ -2784,14 +2785,17 @@ def cp_path(cfg=None, batch: int = 8, seq: int = 1024, device: str = "cuda",
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     try:
         for gid in range(2):
-            coordinator = f"127.0.0.1:{_free_port()}"
-            for rank in range(CP_SIZE):
-                args = (cfg, batch, seq, device, lighthouse.address(),
-                        stores[gid].address(), coordinator)
-                p = ctx.Process(target=cp_worker, args=(gid, rank, args, results),
-                                name=f"cp_g{gid}r{rank}", daemon=True)
-                p.start()
-                procs.append(p)
+            address, listener = coordinator_listener()
+            try:
+                for rank in range(CP_SIZE):
+                    args = (cfg, batch, seq, device, lighthouse.address(),
+                            stores[gid].address(), address, listener if rank == 0 else None)
+                    p = ctx.Process(target=cp_worker, args=(gid, rank, args, results),
+                                    name=f"cp_g{gid}r{rank}", daemon=True)
+                    p.start()
+                    procs.append(p)
+            finally:
+                listener.close()  # rank 0 holds its own copy
         out = {}
         deadline = time.monotonic() + timeout
         while len(out) < len(procs):
@@ -2849,6 +2853,7 @@ def cp_path(cfg=None, batch: int = 8, seq: int = 1024, device: str = "cuda",
     offsets = {n: sum(r["offset_launches"][n] for r in runs) for n in names}
     aside = {n: sum(r["aside_launches"][n] for r in runs) for n in names}
     twins = {n: sum(r["twin_calls"][n] for r in runs) for n in runs[0]["twin_calls"]}
+    log_coordinators("cp", 2)
     log(f"cp path: {CP_STEPS} steps committed in {len(runs)} processes; parameters "
         f"and AdamW state ({len(ref)} leaves) bitwise equal across them")
     step_recs = [s for r in runs for s in r["steps"] if s["step"] > 0]
@@ -2998,7 +3003,8 @@ def _hsdp_step0_refs(whole: dict, cfg, tokens, device: str) -> dict:
 
 
 def _hsdp_rank(gid: int, rank: int, life: int, cfg, batch: int, seq: int, device: str,
-               lighthouse_addr: str, store_addr: str, coordinator: str, park) -> dict:
+               lighthouse_addr: str, store_addr: str, coordinator: str, listener,
+               park) -> dict:
     """One process of phase 11: rank ``rank`` of replica group ``gid``'s
     inner mesh ``HSDP_INNER``, in its ``life``-th incarnation (1 after the
     restart).  Group 1's first incarnation sends its launches and steps on
@@ -3025,7 +3031,8 @@ def _hsdp_rank(gid: int, rank: int, life: int, cfg, batch: int, seq: int, device
         torch.set_num_threads(2)  # eight processes share the host
     rss_start = host_rss_gb()
     size = math.prod(HSDP_INNER.values())
-    world = initialize_multihost(coordinator, size, rank, backend="gloo", timeout=600.0)
+    world = initialize_multihost(coordinator, size, rank, backend="gloo", timeout=600.0,
+                                 listener=listener)
     refs_here = gid == 0 and rank == 0 and life == 0
     # every rank draws the whole model from one seed on the host, then
     # keeps its shards
@@ -3211,8 +3218,10 @@ def killed_group_run(phase: str, worker, size: int, kill_after: int, args: tuple
                      timeout: float) -> "tuple":
     """Phases 11 and 12's orchestration: two replica groups of ``size``
     processes each, spawned on the card (``worker(gid, rank, life, args +
-    (lighthouse, store, coordinator), park, results)``), a lighthouse and a
-    store a group here.  Group 1's processes park after their
+    (lighthouse, store, coordinator, listener), park, results)``), a
+    lighthouse and a store a group here; each incarnation's coordinator is
+    bound here and its listener handed to its rank 0, whose store serves on
+    it (the others get ``None``).  Group 1's processes park after their
     ``kill_after``-th commit; once all have reported, they are SIGKILLed and
     restarted (``life`` 1) with a fresh coordinator.  Any child's failure
     or non-zero exit raises; children still running at the end are killed.
@@ -3226,6 +3235,7 @@ def killed_group_run(phase: str, worker, size: int, kill_after: int, args: tuple
     import tempfile
 
     from torchft_tpu_torch.coordination import LighthouseServer, StoreServer
+    from torchft_tpu_torch.parallel.multihost import coordinator_listener
 
     ctx = mp.get_context("spawn")
     lighthouse = LighthouseServer(
@@ -3235,24 +3245,31 @@ def killed_group_run(phase: str, worker, size: int, kill_after: int, args: tuple
     results = ctx.Queue()
     procs: "dict" = {}
     parks: "dict" = {}
+    listeners = 0
     logdir = tempfile.mkdtemp(prefix=f"tft_{phase}_logs_")
     t_start = time.perf_counter()
     alloc_env = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
 
     def spawn(gid: int, life: int) -> None:
-        coordinator = f"127.0.0.1:{_free_port()}"
-        for rank in range(size):
-            full = args + (lighthouse.address(), stores[gid].address(), coordinator)
-            recv, send = ctx.Pipe(duplex=False)
-            name = f"{phase}_g{gid}r{rank}_life{life}"
-            p = ctx.Process(target=worker, args=(gid, rank, life, full, send, results,
-                                                 os.path.join(logdir, f"{name}.log")),
-                            name=name, daemon=True)
-            p.start()
-            send.close()
-            procs[(gid, rank, life)] = p
-            parks[(gid, rank, life)] = recv
+        nonlocal listeners
+        address, listener = coordinator_listener()
+        listeners += 1
+        try:
+            for rank in range(size):
+                full = args + (lighthouse.address(), stores[gid].address(), address,
+                               listener if rank == 0 else None)
+                recv, send = ctx.Pipe(duplex=False)
+                name = f"{phase}_g{gid}r{rank}_life{life}"
+                p = ctx.Process(target=worker, args=(gid, rank, life, full, send, results,
+                                                     os.path.join(logdir, f"{name}.log")),
+                                name=name, daemon=True)
+                p.start()
+                send.close()
+                procs[(gid, rank, life)] = p
+                parks[(gid, rank, life)] = recv
+        finally:
+            listener.close()  # rank 0 holds its own copy
 
     out, parked, killed_at, failure, states = {}, {}, None, None, {}
     try:
@@ -3326,6 +3343,7 @@ def killed_group_run(phase: str, worker, size: int, kill_after: int, args: tuple
                            f"{report}{whole}") from failure
     for name, text in logs.items():
         log(f"----- {name} -----\n{text.rstrip()}")
+    log_coordinators(phase, listeners)
     return out, parked, killed_at, time.perf_counter() - t_start
 
 
@@ -3621,7 +3639,8 @@ def _pp_step0_refs(whole: dict, cfg, tokens, device: str, routing,
 
 
 def _pp_rank(gid: int, rank: int, life: int, cfg, batch: int, seq: int, device: str,
-             lighthouse_addr: str, store_addr: str, coordinator: str, park) -> dict:
+             lighthouse_addr: str, store_addr: str, coordinator: str, listener,
+             park) -> dict:
     """One process of phase 12: rank ``rank`` of replica group ``gid``'s
     inner mesh ``PP_INNER`` (its stage's blocks, its experts), in its
     ``life``-th incarnation.  Group 1's first incarnation sends its
@@ -3648,7 +3667,8 @@ def _pp_rank(gid: int, rank: int, life: int, cfg, batch: int, seq: int, device: 
         torch.set_num_threads(2)  # eight processes share the host
     rss_start = host_rss_gb()
     size = math.prod(PP_INNER.values())
-    world = initialize_multihost(coordinator, size, rank, backend="gloo", timeout=600.0)
+    world = initialize_multihost(coordinator, size, rank, backend="gloo", timeout=600.0,
+                                 listener=listener)
     refs_here = gid == 0 and rank == 0 and life == 0
     # every rank draws the whole model from one seed on the host, then
     # keeps its stage's blocks and its experts
@@ -4192,8 +4212,11 @@ def _fleet_trainer(spec: dict, gid: int, groups: int) -> None:
                     hold("parked for the trainer kill", lambda: False)
                 if gid == 0:
                     def restarted() -> bool:
+                        # training, and heard by the leader: else group 0's
+                        # next quorum can form before the leader knows it
                         doc = _read_json(os.path.join(d, "g1_inc1.json"))
-                        return doc is not None and doc["status"] == "training"
+                        return (doc is not None and doc["status"] == "training"
+                                and _leader_hears(doc["replica_id"]))
                     hold("holding for the restarted group", restarted)
         rec["final_step"] = manager.current_step()
         rec["worker"] = _proc_status(pg.worker_pid())
@@ -4235,6 +4258,24 @@ def _fleet_trainer(spec: dict, gid: int, groups: int) -> None:
     finally:
         manager.shutdown()
         pg.shutdown()  # the Manager leaves its PG to its owner
+
+
+def _leader_hears(replica_id: str) -> bool:
+    """Whether the lighthouse leader of ``TORCHFT_LIGHTHOUSE`` lists a fresh
+    heartbeat from ``replica_id``."""
+    import urllib.request
+
+    from torchft_tpu_torch.ha import parse_endpoints
+
+    for ep in parse_endpoints(os.environ["TORCHFT_LIGHTHOUSE"]):
+        with contextlib.suppress(Exception):
+            with urllib.request.urlopen(f"http://{ep}/status.json?per_page=64",
+                                        timeout=2) as r:
+                doc = json.load(r)
+            if doc.get("ha", {}).get("is_leader"):
+                return any(b["replica_id"] == replica_id and not b["stale"]
+                           for b in doc.get("heartbeats", []))
+    return False
 
 
 def fleet_member() -> None:
@@ -4355,8 +4396,14 @@ def check_fleet_report(pm: dict, g0: dict, g1k: dict, g1: dict) -> dict:
     # (b)
     f = rep["failure"]
     assert f is not None and f["step"] == FLEET_WORKER_KILL_STEP, f
-    assert "worker exited" in str(f["detail"]), f
-    assert f["reported_by"] in (ids["g0"], ids["g1_inc0"]), f
+    # the report's failed op is the first hard error of the merged records:
+    # group 1's pipe EOF from its dead worker, or group 0's ring losing that
+    # worker's connection (closed or reset), whichever a loaded host logged
+    # first
+    said = {ids["g1_inc0"]: ("worker exited",),
+            ids["g0"]: ("peer closed connection", "Connection reset by peer")}
+    assert f["reported_by"] in said and any(
+        w in str(f["detail"]) for w in said[f["reported_by"]]), f
     for key in ("g0", "g1_inc1"):
         assert rep["replicas"][ids[key]]["max_step"] == steps, (key, rep["replicas"])
     # (c)
@@ -4400,6 +4447,71 @@ def check_fleet_report(pm: dict, g0: dict, g1k: dict, g1: dict) -> dict:
     }
 
 
+def start_lighthouse_peers(options: list, log_dir: str, n: int = 3,
+                           deadline_s: float = 60.0) -> "tuple":
+    """``n`` lighthouse peers, each a process of the port's CLI with
+    ``options`` and its output in ``log_dir``, on ports from
+    ``pick_free_ports``; returns once every peer answers ``/status.json``.
+    Each peer needs the others' addresses before it starts, so a port taken
+    between its pick and its peer's bind cannot be avoided, only repaired:
+    a peer that exits (its bind failed) or does not answer within
+    ``deadline_s`` sends every peer down, and all start again on fresh
+    ports, ``FLEET_BIND_ATTEMPTS`` times at most.  Returns ``(processes,
+    endpoints, ports, restarts)``."""
+    import urllib.request
+
+    from torchft_tpu_torch.ha import format_endpoints, pick_free_ports
+    from torchft_tpu_torch.ha.fleet import FLEET_BIND_ATTEMPTS
+
+    def up(ep: str) -> bool:
+        with contextlib.suppress(Exception):
+            with urllib.request.urlopen(f"http://{ep}/status.json", timeout=2) as r:
+                return "ha" in json.load(r)
+        return False
+
+    failure = ""
+    for attempt in range(FLEET_BIND_ATTEMPTS):
+        ports = pick_free_ports(n)
+        endpoints = [f"127.0.0.1:{p}" for p in ports]
+        peers = []
+        for i, ep in enumerate(endpoints):
+            with open(os.path.join(log_dir, f"lighthouse{i}_try{attempt}.log"), "wb") as out:
+                peers.append(subprocess.Popen(
+                    [sys.executable, "-m", "torchft_tpu_torch.lighthouse", "--bind", ep,
+                     "--peers", format_endpoints(endpoints)] + options,
+                    stdout=out, stderr=subprocess.STDOUT))
+        waiting, deadline = set(range(n)), time.monotonic() + deadline_s
+        while waiting and time.monotonic() < deadline:
+            exited = [i for i in range(n) if peers[i].poll() is not None]
+            if exited:
+                failure = f"peers {exited} exited ({[peers[i].returncode for i in exited]})"
+                break
+            waiting -= {i for i in waiting if up(endpoints[i])}
+            time.sleep(0.05)
+        else:
+            if not waiting:
+                return peers, endpoints, ports, attempt
+            failure = f"peers {sorted(waiting)} did not answer within {deadline_s} s"
+        for p in peers:
+            if p.poll() is None:
+                p.kill()
+            p.wait(timeout=30)
+        log(f"fleet path: lighthouse peers on {ports}: {failure}; starting them again "
+            f"on fresh ports")
+    raise RuntimeError(f"lighthouse peers failed {FLEET_BIND_ATTEMPTS} times: {failure}\n"
+                       + peer_logs(log_dir))
+
+
+def peer_logs(log_dir: str) -> str:
+    """Every lighthouse peer's output in ``log_dir``, one block each."""
+    out = []
+    for name in sorted(os.listdir(log_dir)):
+        if name.startswith("lighthouse") and name.endswith(".log"):
+            with open(os.path.join(log_dir, name), errors="replace") as f:
+                out.append(f"----- {name} -----\n{f.read().rstrip()}")
+    return "\n".join(out)
+
+
 def fleet_path(cfg=None, batch: int = 8, seq: int = 1024, device: str = "cuda",
                steps: int = FLEET_STEPS, timeout: float = 900.0,
                lease_ms: int = FLEET_LEASE_MS, evidence_dir: "str | None" = None) -> "dict":
@@ -4420,7 +4532,7 @@ def fleet_path(cfg=None, batch: int = 8, seq: int = 1024, device: str = "cuda",
     import tempfile
     import urllib.request
 
-    from torchft_tpu_torch.ha import format_endpoints, pick_free_ports
+    from torchft_tpu_torch.ha import format_endpoints
     from torchft_tpu_torch.launcher import ReplicaGroupLauncher
 
     t_start = time.perf_counter()
@@ -4438,14 +4550,17 @@ def fleet_path(cfg=None, batch: int = 8, seq: int = 1024, device: str = "cuda",
             "steps": steps, "seed": FLEET_SEED, "timeout": timeout,
             "pg_timeout": min(600.0, timeout)}
     here = os.path.dirname(os.path.abspath(__file__))
-    ports = pick_free_ports(3)
-    endpoints = [f"127.0.0.1:{p}" for p in ports]
-    peers = [subprocess.Popen(
-        [sys.executable, "-m", "torchft_tpu_torch.lighthouse", "--bind", ep,
-         "--peers", format_endpoints(endpoints), "--lease-timeout-ms", str(lease_ms),
-         "--min-replicas", "1", "--join-timeout-ms", "500", "--quorum-tick-ms", "50",
-         "--heartbeat-timeout-ms", "5000"],
-        stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL) for ep in endpoints]
+    peer_dir = tempfile.mkdtemp(prefix="tft_fleet_lighthouse_")
+    try:
+        peers, endpoints, ports, peer_restarts = start_lighthouse_peers(
+            ["--lease-timeout-ms", str(lease_ms), "--min-replicas", "1",
+             "--join-timeout-ms", "500", "--quorum-tick-ms", "50",
+             "--heartbeat-timeout-ms", "5000"], peer_dir)
+    except BaseException:
+        shutil.rmtree(peer_dir, ignore_errors=True)
+        shutil.rmtree(d, ignore_errors=True)
+        raise
+    log(f"fleet path: lighthouse peers up on {ports}; fleet restarts: {peer_restarts}")
 
     def leader(deadline_s: float = 60.0) -> int:
         deadline = time.monotonic() + deadline_s
@@ -4558,6 +4673,9 @@ def fleet_path(cfg=None, batch: int = 8, seq: int = 1024, device: str = "cuda",
                                         timeout=10) as r:
                 with open(os.path.join(ev, f"{doc}.json"), "wb") as f:
                     f.write(r.read())
+    except BaseException:
+        log("fleet path failed; the lighthouse peers' output:\n" + peer_logs(peer_dir))
+        raise
     finally:
         if launcher is not None:
             launcher.shutdown()
@@ -4569,6 +4687,7 @@ def fleet_path(cfg=None, batch: int = 8, seq: int = 1024, device: str = "cuda",
             sock.close()
         docs = incs()
         shutil.rmtree(d, ignore_errors=True)
+        shutil.rmtree(peer_dir, ignore_errors=True)
     wall = time.perf_counter() - t_start
 
     # -- checks ------------------------------------------------------------
@@ -4670,7 +4789,7 @@ def fleet_path(cfg=None, batch: int = 8, seq: int = 1024, device: str = "cuda",
     names = g0["launches"]
     return {
         "layers": _fleet_cfg(spec).n_layers, "batch": batch, "seq": seq, "steps": steps,
-        "codes": codes, "restarts": restarts,
+        "codes": codes, "restarts": restarts, "lighthouse_restarts": peer_restarts,
         "median_step_ms": med(lambda s: s["step_ms"]),
         "median_ms": {"compute": med(lambda s: s["compute_ms"]),
                       "sync": med(lambda s: s["sync_ms"]),

@@ -23,7 +23,6 @@ from __future__ import annotations
 
 import argparse
 import os
-import socket
 import sys
 
 sys.path.insert(
@@ -45,14 +44,8 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def rank_main(replica_id: str, rank: int, lighthouse_addr: str, store_addr: str,
-              coordinator: str, args) -> None:
+              coordinator: tuple, args) -> None:
     """One rank of one replica group (a spawned process)."""
     import numpy as np
     import torch
@@ -78,8 +71,10 @@ def rank_main(replica_id: str, rank: int, lighthouse_addr: str, store_addr: str,
         n_layers=2, max_seq_len=32,
         dtype=torch.float32 if device.type == "cpu" else torch.bfloat16,
     )
-    world = multihost.initialize_multihost(coordinator, n, rank, backend=backend,
-                                           timeout=60.0)
+    # rank 0's store serves on the listener the parent bound
+    address, listener = coordinator
+    world = multihost.initialize_multihost(
+        address, n, rank, backend=backend, timeout=60.0, listener=listener)
     model = tfm.init_params(torch.Generator().manual_seed(0), cfg, device)
     holder = {}
 
@@ -139,18 +134,22 @@ def run_group(replica_id: str, lighthouse_addr: str, args) -> int:
     import multiprocessing as mp
 
     from torchft_tpu_torch.coordination import StoreServer
+    from torchft_tpu_torch.parallel.multihost import coordinator_listener
 
     ctx = mp.get_context("spawn")
     store = StoreServer()
-    coordinator = f"127.0.0.1:{_free_port()}"
+    address, listener = coordinator_listener()
     procs = [
-        ctx.Process(target=rank_main, args=(replica_id, r, lighthouse_addr,
-                                            store.address(), coordinator, args))
+        ctx.Process(target=rank_main, args=(replica_id, r, lighthouse_addr, store.address(),
+                                            (address, listener if r == 0 else None), args))
         for r in range(args.fsdp * args.tp)
     ]
     try:
-        for p in procs:
-            p.start()
+        try:
+            for p in procs:
+                p.start()
+        finally:
+            listener.close()  # rank 0 holds its own copy
         for p in procs:
             p.join()
     finally:

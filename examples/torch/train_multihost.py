@@ -84,6 +84,9 @@ def parse_args(argv=None):
     p.add_argument("--group-id", type=int, default=0)
     p.add_argument("--process-id", type=int, default=0)
     p.add_argument("--coordinator", default=None)
+    p.add_argument("--coordinator-fd", type=int, default=None,
+                   help="process 0: a socket already listening at the "
+                        "coordinator's port, for its store to serve on")
     p.add_argument("--store-addr", default=None)
     p.add_argument("--lighthouse", default=None)
     return p.parse_args(argv)
@@ -110,7 +113,9 @@ def worker(args) -> int:
         torch.set_num_threads(1)  # every process of every group shares the host
 
     # ---- inner parallelism: one dp axis over the whole group -------------
-    world = initialize_multihost(args.coordinator, n, pid, timeout=60.0)
+    # process 0's store serves on the listener the launcher bound
+    listener = None if args.coordinator_fd is None else socket.socket(fileno=args.coordinator_fd)
+    world = initialize_multihost(args.coordinator, n, pid, timeout=60.0, listener=listener)
     dp = MeshAxis("dp", world.new_group("dp", range(n)), pid, n)
 
     dim = 8
@@ -251,12 +256,6 @@ def _diloco_loop(args, manager, state, grad_step, make_batch, note_commit):
     return loss
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("", 0))
-        return s.getsockname()[1]
-
-
 def launch(args) -> int:
     """Spawn groups x procs real worker processes against one Lighthouse.
 
@@ -271,6 +270,7 @@ def launch(args) -> int:
     import time
 
     from torchft_tpu_torch.coordination import LighthouseServer, StoreServer
+    from torchft_tpu_torch.parallel.multihost import coordinator_listener
 
     # quorum formation waits for every group — otherwise a fast-starting
     # group trains (and finishes) solo before the others join
@@ -280,7 +280,8 @@ def launch(args) -> int:
     stores = [StoreServer() for _ in range(args.groups)]
 
     def spawn_group(g: int) -> "list[subprocess.Popen]":
-        coord = f"127.0.0.1:{_free_port()}"
+        # the group's coordinator: bound here, served by process 0's store
+        coord, listener = coordinator_listener()
         group_procs = []
         for p in range(args.procs_per_group):
             cmd = [
@@ -300,10 +301,13 @@ def launch(args) -> int:
             ]
             if args.quantize:
                 cmd.append("--quantize")
+            fds = (listener.fileno(),) if p == 0 else ()
+            cmd += [f"--coordinator-fd={fd}" for fd in fds]
             group_procs.append(subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True,
+                text=True, pass_fds=fds,
             ))
+        listener.close()  # process 0 holds its own copy
         return group_procs
 
     groups = [spawn_group(g) for g in range(args.groups)]

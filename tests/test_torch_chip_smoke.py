@@ -390,15 +390,16 @@ def test_transport_and_example_paths_rehearsal_on_cpu():
     assert e["last_line"] == "done: 2 replica groups, 2 committed steps each on cpu"
 
 
-def test_a_rank_wired_to_a_reused_stale_address_follows_its_group_server():
-    """A restarted group's non-zero rank reads the killed incarnation's
-    server address from the group's store before the new rank 0 republishes
-    it; on a busy host another process's listener can hold that port, so
-    the construction probe takes it.  Once that listener is gone the rank's
-    quorum RPC met refused connections for its whole connect budget (the
-    pp x ep rehearsal's failure under load); now its client re-reads the
-    store on a refusal, follows the new server, and takes its replica id."""
+def _stale_address_rank_follows(foreign_resets: bool) -> None:
+    """A group's rank 1 built while the store still publishes the killed
+    incarnation's server address, held by another process's listener;
+    that listener then either closes (``foreign_resets`` False: the rank's
+    connects are refused) or stays and resets every connection it gets.
+    Rank 0 then starts; both ranks' quorum must succeed, rank 1 on rank 0's
+    server under rank 0's replica id."""
     import socket
+    import struct
+    import threading
 
     from torchft_tpu_torch import Manager
     from torchft_tpu_torch.coordination import LighthouseServer, StoreClient, StoreServer
@@ -412,6 +413,17 @@ def test_a_rank_wired_to_a_reused_stale_address_follows_its_group_server():
     sc.set("replica_id", "grp:killed-incarnation")
     sc.set("manager_addr", stale)
     managers = []
+    stop = threading.Event()
+
+    def reset_every_connection():
+        foreign.settimeout(0.1)
+        while not stop.is_set():
+            try:
+                conn, _ = foreign.accept()
+            except OSError:
+                continue
+            conn.setsockopt(socket.SOL_SOCKET, socket.SO_LINGER, struct.pack("ii", 1, 0))
+            conn.close()
 
     def manager(rank):
         m = Manager(
@@ -432,7 +444,10 @@ def test_a_rank_wired_to_a_reused_stale_address_follows_its_group_server():
     try:
         rank1 = manager(1)
         assert rank1._client.address() == stale  # the probe took the listener
-        foreign.close()
+        if foreign_resets:
+            threading.Thread(target=reset_every_connection, daemon=True).start()
+        else:
+            foreign.close()
         rank0 = manager(0)
         with ThreadPoolExecutor(max_workers=2) as ex:
             errors = [f.result(timeout=60) for f in [ex.submit(quorum, m) for m in (rank0, rank1)]]
@@ -440,12 +455,33 @@ def test_a_rank_wired_to_a_reused_stale_address_follows_its_group_server():
         assert rank1._client.address() == rank0._manager_server.address()
         assert rank1.replica_id() == rank0.replica_id() != "grp:killed-incarnation"
     finally:
+        stop.set()
         for m in managers:
             m.shutdown(wait=False)
         foreign.close()
         sc.close()
         store.shutdown()
         lighthouse.shutdown()
+
+
+def test_a_rank_wired_to_a_reused_stale_address_follows_its_group_server():
+    """A restarted group's non-zero rank reads the killed incarnation's
+    server address from the group's store before the new rank 0 republishes
+    it; on a busy host another process's listener can hold that port, so
+    the construction probe takes it.  Once that listener is gone the rank's
+    quorum RPC met refused connections for its whole connect budget (the
+    pp x ep rehearsal's failure under load); now its client re-reads the
+    store on a refusal, follows the new server, and takes its replica id."""
+    _stale_address_rank_follows(foreign_resets=False)
+
+
+def test_a_rank_whose_stale_address_resets_its_connections_follows_its_group_server():
+    """As above, but the other process's listener stays and resets the
+    rank's connections (a port churner's socket closing with connections in
+    its backlog: the HSDP rehearsal's quorum failure beside one).  The
+    client re-reads the store after a broken connection too, before its
+    one re-send."""
+    _stale_address_rank_follows(foreign_resets=True)
 
 
 def _group_of_two(lighthouse, store, connect_timeout=3.0):
@@ -461,6 +497,25 @@ def _group_of_two(lighthouse, store, connect_timeout=3.0):
         use_async_quorum=False) for rank in range(2)]
 
 
+def _manager_server_answers(addr):
+    """Whether a ManagerServer answers an RPC at ``addr``: a reply, or the
+    server's error for it.  Once it has stopped, another process of a busy
+    host may listen on its freed port: that one accepts a connection but
+    answers nothing."""
+    from torchft_tpu_torch.coordination import ManagerClient, RpcError
+
+    client = ManagerClient(addr, connect_timeout=1.0)
+    try:
+        client._checkpoint_metadata(0, timeout=1.0)
+    except RpcError:
+        return True
+    except (ConnectionError, TimeoutError):
+        return False
+    finally:
+        client.close()
+    return True
+
+
 @pytest.mark.parametrize("rank1_leaves", [True, False])
 def test_rank0_keeps_the_group_server_until_every_rank_has_left(rank1_leaves):
     """The pp x ep rehearsal's failure under the whole suite's load: the
@@ -473,7 +528,6 @@ def test_rank0_keeps_the_group_server_until_every_rank_has_left(rank1_leaves):
     import threading
     import time
 
-    from torchft_tpu_torch import Manager
     from torchft_tpu_torch.coordination import LighthouseServer, StoreServer
 
     lighthouse = LighthouseServer(min_replicas=1, join_timeout_ms=100)
@@ -485,14 +539,14 @@ def test_rank0_keeps_the_group_server_until_every_rank_has_left(rank1_leaves):
     try:
         leaving.start()
         time.sleep(1.0)
-        assert leaving.is_alive() and Manager._endpoint_alive(addr)
+        assert leaving.is_alive() and _manager_server_answers(addr)
         if rank1_leaves:
             rank1.shutdown()
         leaving.join(timeout=10)
         assert not leaving.is_alive()
         waited = time.monotonic() - t0
         assert waited < 2.5 if rank1_leaves else 3.0 <= waited < 6.0, waited
-        assert not Manager._endpoint_alive(addr)
+        assert not _manager_server_answers(addr)
     finally:
         if not rank1_leaves:
             rank1.shutdown(wait=False)

@@ -11,7 +11,6 @@ processes, which import it, start quickly.
 
 import multiprocessing as mp
 import queue
-import socket
 
 import numpy as np
 import pytest
@@ -19,12 +18,6 @@ import torch
 
 from torchft_tpu_torch.parallel import device_mesh as tdm
 from torchft_tpu_torch.parallel import multihost
-
-
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def _rank(rank, addr, backend, shape, inputs, results):
@@ -41,7 +34,9 @@ def _rank(rank, addr, backend, shape, inputs, results):
         dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
-        world = multihost.initialize_multihost(addr, 4, rank, timeout=120.0)
+        address, listener = addr  # rank 0 gets the socket the parent bound
+        world = multihost.initialize_multihost(
+            address, 4, rank, timeout=120.0, listener=listener)
         assert world.backend == backend, world.backend
         mesh = tdm.ft_init_device_mesh(None, shape, groups=world, device=dev).mesh
         q, k, v, w = (torch.from_numpy(x) for x in inputs)
@@ -95,11 +90,13 @@ def test_ring_attention_across_four_processes(backend, shape):
     w = rng.standard_normal(q.shape).astype(np.float32) / q.size
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
-    addr = f"127.0.0.1:{_free_port()}"
-    procs = [ctx.Process(target=_rank, args=(r, addr, backend, shape, (q, k, v, w), results),
+    addr, listener = multihost.coordinator_listener()
+    procs = [ctx.Process(target=_rank, args=(r, (addr, listener if r == 0 else None), backend,
+                                             shape, (q, k, v, w), results),
                          daemon=True) for r in range(4)]
     for p in procs:
         p.start()
+    listener.close()  # rank 0 holds its own copy
     got = {}
     try:
         while len(got) < 4:

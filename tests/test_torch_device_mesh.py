@@ -254,10 +254,12 @@ def test_all_gather_and_reduce_scatter_match_jax_bitwise():
 
 
 def test_initialize_multihost_over_a_tcp_store():
-    port = _free_port()
+    # rank 0's store serves on the socket bound here
+    address, listener = multihost.coordinator_listener()
 
     def rank(r):
-        world = multihost.initialize_multihost(f"127.0.0.1:{port}", 2, r, timeout=30.0)
+        world = multihost.initialize_multihost(
+            address, 2, r, timeout=30.0, listener=listener if r == 0 else None)
         assert world.backend == "gloo" and world.size == 2
         fmesh = tdm.ft_init_device_mesh(None, {"cp": 2}, groups=world, device="cpu")
         x = torch.tensor([r + 1.0])
@@ -319,14 +321,6 @@ def test_a_gloo_group_that_never_builds_raises_on_every_rank(monkeypatch):
     multihost.run_ranks(rank, 2, timeout=60.0)
     assert len(errors) == 2
     assert all(f"failed {multihost.GLOO_CONNECT_ATTEMPTS} times" in e for e in errors)
-
-
-def _free_port():
-    import socket
-
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def test_host_sharded_array_returns_this_ranks_shard():

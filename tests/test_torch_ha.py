@@ -86,24 +86,26 @@ def test_in_process_fleet_takeover_bumps_term_and_quorum_id():
 
 
 class SubprocessFleet:
-    """Three peers of the port's lighthouse CLI, SIGKILL-able."""
+    """Three peers of the port's lighthouse CLI, SIGKILL-able, started as
+    phase 13 starts them (``chip_smoke.start_lighthouse_peers``: each
+    checked to answer, all started again on fresh ports when a port was
+    taken before its peer bound it), each peer's output in ``log_dir``."""
 
-    def __init__(self, n: int = 3, lease_ms: int = LEASE_MS) -> None:
-        self.ports = ha.pick_free_ports(n)
-        self.endpoints = [f"127.0.0.1:{p}" for p in self.ports]
-        full = ha.format_endpoints(self.endpoints)
+    def __init__(self, log_dir: str, n: int = 3, lease_ms: int = LEASE_MS) -> None:
+        import chip_smoke
+
+        self.log_dir = log_dir
+        procs, self.endpoints, self.ports, self.restarts = chip_smoke.start_lighthouse_peers(
+            ["--lease-timeout-ms", str(lease_ms), "--min-replicas", "1",
+             "--quorum-tick-ms", "50", "--heartbeat-timeout-ms", "3000",
+             "--join-timeout-ms", "100"], log_dir, n=n)
         self.held: "list[socket.socket]" = []
-        self.procs: "list[subprocess.Popen | None]" = [
-            subprocess.Popen(
-                [sys.executable, "-m", "torchft_tpu_torch.lighthouse",
-                 "--bind", f"127.0.0.1:{port}", "--peers", full,
-                 "--lease-timeout-ms", str(lease_ms), "--min-replicas", "1",
-                 "--quorum-tick-ms", "50", "--heartbeat-timeout-ms", "3000",
-                 "--join-timeout-ms", "100"],
-                stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True,
-            )
-            for port in self.ports
-        ]
+        self.procs: "list[subprocess.Popen | None]" = list(procs)
+
+    def log(self, i: int) -> str:
+        """Peer ``i``'s output so far."""
+        with open(f"{self.log_dir}/lighthouse{i}_try{self.restarts}.log") as f:
+            return f.read()
 
     def addresses(self) -> str:
         return ha.format_endpoints(self.endpoints)
@@ -159,8 +161,8 @@ class SubprocessFleet:
 
 
 @pytest.fixture
-def fleet():
-    f = SubprocessFleet()
+def fleet(tmp_path):
+    f = SubprocessFleet(str(tmp_path))
     try:
         f.leader_index()  # up and elected before any test logic runs
         yield f
@@ -169,7 +171,7 @@ def fleet():
 
 
 def test_cli_banner_names_its_peers(fleet):
-    line = fleet.procs[0].stdout.readline()
+    line = fleet.log(0).splitlines()[0]
     assert f"lighthouse serving at 127.0.0.1:{fleet.ports[0]}" in line
     assert "[HA: 2 peer(s)" in line
 

@@ -17,7 +17,6 @@ import it, start quickly.
 import hashlib
 import multiprocessing as mp
 import queue
-import socket
 import time
 
 import numpy as np
@@ -40,12 +39,6 @@ CUDA_CFG = dict(
     vocab_size=256, d_model=384, n_heads=6, n_kv_heads=3, d_ff=512,
     n_layers=2, max_seq_len=128,
 )
-
-
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def _digests(model, opt):
@@ -76,8 +69,9 @@ def _group_rank(gid, rank, life, lighthouse, store, coordinator, park, results):
     try:
         torch.set_num_threads(1)  # four processes, and a restarted two, share the host
         cfg = ttf.TransformerConfig(dtype=torch.float32, attn_impl="dense", remat=False, **CFG)
-        world = multihost.initialize_multihost(coordinator, 2, rank, backend="gloo",
-                                               timeout=60.0)
+        address, listener = coordinator  # rank 0 gets the socket the parent bound
+        world = multihost.initialize_multihost(
+            address, 2, rank, backend="gloo", timeout=60.0, listener=listener)
         model = ttf.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
         opt = None
         manager = Manager(
@@ -142,15 +136,16 @@ def test_killed_fsdp_group_heals_rank_by_rank_and_ends_bitwise_equal():
     procs, parks = {}, {}
 
     def spawn(gid, life):
-        coordinator = f"127.0.0.1:{_free_port()}"
+        address, listener = multihost.coordinator_listener()
         for rank in range(2):
             recv, send = ctx.Pipe(duplex=False)
             p = ctx.Process(target=_group_rank, daemon=True, args=(
                 gid, rank, life, lighthouse.address(), stores[gid].address(),
-                coordinator, send, results))
+                (address, listener if rank == 0 else None), send, results))
             p.start()
             send.close()
             procs[(gid, rank, life)], parks[(gid, rank, life)] = p, recv
+        listener.close()  # rank 0 holds its own copy
 
     got, parked = {}, set()
     try:
@@ -216,7 +211,9 @@ def _nccl_rank(rank, addr, inputs, results):
         tree, tokens = inputs
         cfg = ttf.TransformerConfig(dtype=torch.bfloat16, attn_impl="flash", remat=False,
                                     **CUDA_CFG)
-        world = multihost.initialize_multihost(addr, 4, rank, timeout=120.0)
+        address, listener = addr  # rank 0 gets the socket the parent bound
+        world = multihost.initialize_multihost(
+            address, 4, rank, timeout=120.0, listener=listener)
         assert world.backend == "nccl", world.backend
         mesh = tdm.ft_init_device_mesh(None, {"fsdp": 2, "tp": 2}, groups=world,
                                        device=dev).mesh
@@ -257,11 +254,13 @@ def test_fsdp2_tp2_across_four_cards_over_nccl():
     tokens = np.random.default_rng(2).integers(0, cfg.vocab_size, (4, 128))
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
-    addr = f"127.0.0.1:{_free_port()}"
-    procs = [ctx.Process(target=_nccl_rank, args=(r, addr, (tree, tokens), results),
+    addr, listener = multihost.coordinator_listener()
+    procs = [ctx.Process(target=_nccl_rank, args=(r, (addr, listener if r == 0 else None),
+                                                  (tree, tokens), results),
                          daemon=True) for r in range(4)]
     for p in procs:
         p.start()
+    listener.close()  # rank 0 holds its own copy
     got = {}
     try:
         while len(got) < 4:

@@ -4,7 +4,10 @@
 """
 
 import json
+import os
 import socket
+import subprocess
+import sys
 import threading
 import time
 import urllib.error
@@ -20,6 +23,8 @@ from torchft_tpu_torch.parallel.process_group import (
     ProcessGroupTCP,
 )
 from torchft_tpu_torch.parameter_server import ParameterServer
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 class _EchoPS(ParameterServer):
@@ -101,8 +106,8 @@ def test_multiple_sequential_sessions(ps):
 
 
 def test_bad_path_rejected_and_session_mint_document(ps):
-    # the minted sessions are never joined: their server threads give up
-    # on rank 1 after the PG timeout, which the teardown waits out
+    # the minted sessions are never joined: their server threads wait for
+    # rank 1 until the teardown's shutdown aborts them
     _EchoPS.pg_timeout = 2.0
     with pytest.raises(urllib.error.HTTPError):
         urllib.request.urlopen(ps.address().replace("/new_session", "/nope"))
@@ -118,6 +123,66 @@ def test_bad_path_rejected_and_session_mint_document(ps):
     assert docs[0]["session_id"] != docs[1]["session_id"]
 
 
+_SHUTDOWN_UNDER_WAITING_SESSIONS = """
+import json, sys, threading, time, urllib.request
+from torchft_tpu_torch.coordination import StoreClient
+from torchft_tpu_torch.parallel.process_group import ProcessGroupTCP
+from torchft_tpu_torch.parameter_server import ParameterServer
+
+case = sys.argv[1]
+making = threading.Semaphore(0)
+
+class PS(ParameterServer):
+    @classmethod
+    def new_process_group(cls):
+        making.release()
+        if case == "pg_made_after_shutdown_begins":
+            time.sleep(1.0)
+        return ProcessGroupTCP(timeout=60.0)
+
+    def forward(self, session_id, pg):
+        raise AssertionError("no client ever joins")
+
+ps = PS(port=0)
+docs = []
+for _ in range(3):
+    with urllib.request.urlopen(ps.address()) as f:
+        docs.append(json.load(f))
+for _ in docs:  # every session is registered and making its PG
+    assert making.acquire(timeout=30.0)
+if case == "waiting_in_configure":
+    store = StoreClient(ps._store.address())
+    for d in docs:  # each session's rank 0 is up and waits in the store for rank 1
+        store.get(f"session/{d['session_id']}/rank_0", timeout=30.0)
+    store.close()
+    time.sleep(0.2)
+sessions = [t for t in threading.enumerate() if "process_request_thread" in t.name]
+t0 = time.monotonic()
+ps.shutdown()
+took = time.monotonic() - t0
+print(json.dumps({"sessions": len(sessions), "shutdown_s": took,
+                  "alive": [t.name for t in sessions if t.is_alive()]}))
+"""
+
+
+@pytest.mark.parametrize("case", ["waiting_in_configure", "pg_made_after_shutdown_begins"])
+def test_shutdown_ends_sessions_that_wait_for_their_client(case):
+    """Sessions minted over HTTP and never joined wait in their PG's
+    configure (a store get for rank 1), or are still making their PG when
+    shutdown begins.  ``shutdown()`` ends them and joins their threads
+    before it stops the native store, well inside their 60 s PG timeout;
+    stopping the store under a waiting get could kill the process, so this
+    runs in a child."""
+    out = subprocess.run([sys.executable, "-c", _SHUTDOWN_UNDER_WAITING_SESSIONS, case],
+                         cwd=REPO, capture_output=True, text=True, timeout=40,
+                         env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert out.returncode == 0, out.stderr[-4000:]
+    doc = json.loads(out.stdout.strip().splitlines()[-1])
+    assert doc["sessions"] == 3, doc
+    assert doc["alive"] == [], doc
+    assert doc["shutdown_s"] < 10.0, doc
+
+
 def test_failed_collective_tears_down_session(ps):
     """A client that dies mid-session fails the server's collective; the
     session thread raises, frees its PG, and the server keeps minting."""
@@ -131,18 +196,20 @@ def test_failed_collective_tears_down_session(ps):
         pg2.shutdown()
 
 
-def _free_port():
-    probe = socket.socket()
-    probe.bind(("127.0.0.1", 0))
-    port = probe.getsockname()[1]
-    probe.close()
-    return port
+def _reserved_port():
+    """A port bound here and not listening: a connect to it is refused, no
+    other process can bind it, and a server that sets SO_REUSEADDR (as
+    ``http.server`` does) can bind it beside this socket."""
+    reserved = socket.socket()
+    reserved.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+    reserved.bind(("127.0.0.1", 0))
+    return reserved, reserved.getsockname()[1]
 
 
 def test_new_session_retries_until_server_up():
     """new_session goes through the unified retry layer: a server that
     binds after the first attempts is polled, not failed."""
-    port = _free_port()
+    reserved, port = _reserved_port()
     results = {}
 
     def _mint():
@@ -156,6 +223,7 @@ def test_new_session_retries_until_server_up():
     t.start()
     t.join(timeout=0.5)  # a few connection-refused attempts first
     server = _EchoPS(port=port)
+    reserved.close()
     try:
         t.join(timeout=20)
         assert not t.is_alive(), "new_session never completed"
@@ -170,8 +238,11 @@ def test_new_session_retries_until_server_up():
 
 def test_new_session_deadline_bounded():
     """With nothing listening, new_session fails within its deadline."""
-    port = _free_port()
-    t0 = time.monotonic()
-    with pytest.raises((TimeoutError, ConnectionError)):
-        _EchoPS.new_session(f"http://127.0.0.1:{port}/new_session", timeout=1.5)
-    assert time.monotonic() - t0 < 10
+    reserved, port = _reserved_port()
+    try:
+        t0 = time.monotonic()
+        with pytest.raises((TimeoutError, ConnectionError)):
+            _EchoPS.new_session(f"http://127.0.0.1:{port}/new_session", timeout=1.5)
+        assert time.monotonic() - t0 < 10
+    finally:
+        reserved.close()

@@ -19,7 +19,6 @@ hung rank fails the test.
 import hashlib
 import multiprocessing as mp
 import queue
-import socket
 import time
 
 import numpy as np
@@ -44,12 +43,6 @@ CUDA_CFG = dict(
     vocab_size=256, d_model=384, n_heads=6, n_kv_heads=3, d_ff=512,
     n_layers=4, max_seq_len=128, n_experts=4, moe_top_k=2, moe_capacity_factor=1.25,
 )
-
-
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def _digests(model, opt):
@@ -80,8 +73,9 @@ def _group_rank(gid, rank, life, lighthouse, store, coordinator, park, results):
     try:
         torch.set_num_threads(1)  # eight processes, and a restarted four, share the host
         cfg = ttf.TransformerConfig(dtype=torch.float32, attn_impl="dense", remat=True, **CFG)
-        world = multihost.initialize_multihost(coordinator, SIZE, rank, backend="gloo",
-                                               timeout=60.0)
+        address, listener = coordinator  # rank 0 gets the socket the parent bound
+        world = multihost.initialize_multihost(
+            address, SIZE, rank, backend="gloo", timeout=60.0, listener=listener)
         model = ttf.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
         opt = None
         manager = Manager(
@@ -146,15 +140,16 @@ def test_killed_pp_ep_group_heals_rank_by_rank_and_ends_bitwise_equal():
     procs, parks = {}, {}
 
     def spawn(gid, life):
-        coordinator = f"127.0.0.1:{_free_port()}"
+        address, listener = multihost.coordinator_listener()
         for rank in range(SIZE):
             recv, send = ctx.Pipe(duplex=False)
             p = ctx.Process(target=_group_rank, daemon=True, args=(
                 gid, rank, life, lighthouse.address(), stores[gid].address(),
-                coordinator, send, results))
+                (address, listener if rank == 0 else None), send, results))
             p.start()
             send.close()
             procs[(gid, rank, life)], parks[(gid, rank, life)] = p, recv
+        listener.close()  # rank 0 holds its own copy
 
     got, parked = {}, set()
     try:
@@ -227,7 +222,9 @@ def _nccl_rank(rank, addr, inputs, results):
         tree, tokens = inputs
         cfg = ttf.TransformerConfig(dtype=torch.bfloat16, attn_impl="flash", remat=True,
                                     **CUDA_CFG)
-        world = multihost.initialize_multihost(addr, SIZE, rank, timeout=120.0)
+        address, listener = addr  # rank 0 gets the socket the parent bound
+        world = multihost.initialize_multihost(
+            address, SIZE, rank, timeout=120.0, listener=listener)
         assert world.backend == "nccl", world.backend
         mesh = tdm.ft_init_device_mesh(None, INNER, groups=world, device=dev).mesh
         model = ttf.Transformer(cfg, "cpu")
@@ -276,11 +273,13 @@ def test_pp2_ep2_across_four_cards_over_nccl():
     tokens = np.random.default_rng(2).integers(0, cfg.vocab_size, (4, 128))
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
-    addr = f"127.0.0.1:{_free_port()}"
-    procs = [ctx.Process(target=_nccl_rank, args=(r, addr, (tree, tokens), results),
+    addr, listener = multihost.coordinator_listener()
+    procs = [ctx.Process(target=_nccl_rank, args=(r, (addr, listener if r == 0 else None),
+                                                  (tree, tokens), results),
                          daemon=True) for r in range(SIZE)]
     for p in procs:
         p.start()
+    listener.close()  # rank 0 holds its own copy
     got = {}
     try:
         while len(got) < SIZE:

@@ -98,10 +98,13 @@ def test_the_env_installs_the_three_exporters_and_one_scrape_server():
     threading.Thread(target=collector.serve_forever, daemon=True).start()
     import socket
 
-    probe = socket.socket()
-    probe.bind(("127.0.0.1", 0))
-    port = probe.getsockname()[1]
-    probe.close()
+    # the scrape server's port stays bound here, not listening, until the
+    # child is done: no other process can take it, and the child's server
+    # (SO_REUSEADDR) binds it beside this socket
+    reserved = socket.socket()
+    reserved.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+    reserved.bind(("127.0.0.1", 0))
+    port = reserved.getsockname()[1]
     env = dict(os.environ, TORCHFT_USE_OTEL="1", TORCHFT_METRICS_PORT=str(port),
                OTEL_EXPORTER_OTLP_ENDPOINT=f"http://127.0.0.1:{collector.server_port}",
                CUDA_VISIBLE_DEVICES="")
@@ -110,6 +113,7 @@ def test_the_env_installs_the_three_exporters_and_one_scrape_server():
                              capture_output=True, text=True, timeout=120)
     finally:
         collector.shutdown()
+        reserved.close()
     assert out.returncode == 0, out.stderr
     doc = json.loads(out.stdout.strip().splitlines()[-1])
     assert doc["logs"] == 1 and doc["metrics"] and doc["traces"]

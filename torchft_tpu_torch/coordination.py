@@ -256,8 +256,9 @@ class _RpcClient:
         self._connect_timeout = connect_timeout
         self._fault_site = fault_site
         # ``resolve``: where the server is published now; asked after each
-        # refused connect, so a client wired to a server that moved (a
-        # restarted one) follows it within one connect budget
+        # refused connect and each broken connection, so a client wired to
+        # a server that moved (a restarted one) follows it within one
+        # connect budget
         self._resolve = resolve
         self._sock: Optional[socket.socket] = None
         self._lock = threading.Lock()
@@ -278,8 +279,9 @@ class _RpcClient:
         return parse_host_port(self._addr)
 
     def _follow(self) -> None:
-        """After a refused connect: take the address ``resolve`` returns
-        (a resolver that fails leaves the address as it is)."""
+        """After a refused connect or a broken connection: take the address
+        ``resolve`` returns (a resolver that fails leaves the address as it
+        is)."""
         try:
             addr = self._resolve()  # type: ignore[misc]
         except Exception:  # noqa: BLE001 - keep dialing the old address
@@ -403,12 +405,17 @@ class _RpcClient:
                         raise TimeoutError(
                             f"rpc {method} to {self._addr} timed out: {e}"
                         ) from e
+                    failed_at = self._addr
+                    if self._resolve is not None:
+                        # a connection that broke may have reached another
+                        # process's listener on a moved server's old port
+                        self._follow()
                     if attempt == attempts - 1:
                         # Connection-level failure, not a deadline: report it
                         # as such so callers can tell a crashed server from a
                         # protocol wait expiring.
                         raise ConnectionError(
-                            f"rpc {method} to {self._addr} failed: {e}"
+                            f"rpc {method} to {failed_at} failed: {e}"
                         ) from e
                     # Broken connection (e.g. server restarted): retry once.
                     continue

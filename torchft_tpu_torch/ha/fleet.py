@@ -2,7 +2,8 @@
 
 PyTorch-port copy of ``torchft_tpu/ha/fleet.py``.  The test and smoke
 harness for coordination-plane HA: picks N free ports, starts N native
-``LighthouseServer`` peers wired to each other, and exposes the
+``LighthouseServer`` peers wired to each other (again on fresh ports when
+a port was taken before its peer bound it), and exposes the
 leader/term introspection plus targeted kills the chaos tests drive.  Production deployments run
 one ``python -m torchft_tpu_torch.lighthouse --peers ...`` process per node
 instead — the wire behavior is identical.
@@ -31,13 +32,24 @@ _WAIT_LEADER_POLICY = RetryPolicy(
 )
 
 
+#: Times :class:`LighthouseFleet` builds its peers, each time on fresh
+#: ports, when a peer's port was taken between its pick and its bind.
+FLEET_BIND_ATTEMPTS = 5
+
+
+def _bind_failed(err: BaseException) -> bool:
+    return "Address already in use" in str(err)
+
+
 def pick_free_ports(n: int) -> "List[int]":
     """``n`` distinct currently-free TCP ports.
 
-    Bind-then-close: the usual (benign) race — something else could grab
-    a port before the server binds it; callers that cannot tolerate that
-    retry fleet construction.  All sockets are held open until every
-    port is picked so the n ports are distinct.
+    Bind-then-close: something else can bind a port before the server
+    does.  Each peer must know every other peer's address before it
+    starts, so the peers cannot bind port 0 and publish it; a failed
+    bind starts them all again on fresh ports
+    (:class:`LighthouseFleet`, ``FLEET_BIND_ATTEMPTS``).  All sockets are
+    held open until every port is picked so the n ports are distinct.
     """
     socks: "List[socket.socket]" = []
     try:
@@ -76,22 +88,37 @@ class LighthouseFleet:
         if n < 1:
             raise ValueError("fleet needs at least one peer")
         self._host = host
-        self._ports = pick_free_ports(n)
-        self._endpoints = [f"{host}:{p}" for p in self._ports]
+        #: times the peers were built again on fresh ports after a bind
+        #: failed (0 on a quiet host)
+        self.restarts = 0
         self._servers: "List[Optional[LighthouseServer]]" = []
-        for i in range(n):
-            others = [ep for j, ep in enumerate(self._endpoints) if j != i]
-            self._servers.append(
-                LighthouseServer(
-                    bind=f"{host}:{self._ports[i]}",
-                    min_replicas=min_replicas,
-                    join_timeout_ms=join_timeout_ms,
-                    quorum_tick_ms=quorum_tick_ms,
-                    heartbeat_timeout_ms=heartbeat_timeout_ms,
-                    peers=others,
-                    lease_timeout_ms=lease_timeout_ms,
-                )
-            )
+        for attempt in range(FLEET_BIND_ATTEMPTS):
+            self._ports = pick_free_ports(n)
+            self._endpoints = [f"{host}:{p}" for p in self._ports]
+            self._servers = []
+            try:
+                for i in range(n):
+                    others = [ep for j, ep in enumerate(self._endpoints) if j != i]
+                    self._servers.append(
+                        LighthouseServer(
+                            bind=f"{host}:{self._ports[i]}",
+                            min_replicas=min_replicas,
+                            join_timeout_ms=join_timeout_ms,
+                            quorum_tick_ms=quorum_tick_ms,
+                            heartbeat_timeout_ms=heartbeat_timeout_ms,
+                            peers=others,
+                            lease_timeout_ms=lease_timeout_ms,
+                        )
+                    )
+                break
+            except RuntimeError as e:
+                # a peer's port was taken after the pick: the peers made so
+                # far know it, so all of them go and the fleet is built
+                # again on fresh ports
+                self.shutdown()
+                if not _bind_failed(e) or attempt + 1 == FLEET_BIND_ATTEMPTS:
+                    raise
+                self.restarts += 1
         self._lease_timeout_ms = lease_timeout_ms
 
     # -- introspection -----------------------------------------------------

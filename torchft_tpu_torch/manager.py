@@ -457,7 +457,7 @@ class Manager:
             if addr != self._client.address():
                 replica_id = store.get(REPLICA_ID_KEY, timeout=self._connect_timeout)
                 self._logger.warning(
-                    f"manager server at {self._client.address()} refused; the "
+                    f"manager server at {self._client.address()} unreachable; the "
                     f"store now publishes {addr} ({replica_id}): following it"
                 )
                 self._replica_id = replica_id

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import socket
 import threading
 import time
 from datetime import timedelta
@@ -114,24 +115,49 @@ def _default_backend(num_processes: int) -> str:
     return "gloo"
 
 
+def coordinator_listener(host: str = "127.0.0.1") -> "Tuple[str, socket.socket]":
+    """A socket listening at a port the OS picks, and its ``host:port``:
+    the coordinator address a harness hands every process of a group.
+
+    Process 0's store serves on this very socket (``initialize_multihost(
+    ..., listener=sock)``), so the port is never free between its pick
+    and its bind.  The harness gives the socket to process 0 (a
+    spawned process's arguments carry it; ``subprocess`` takes its fd in
+    ``pass_fds``) and closes its own copy once that process has started."""
+    sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    try:
+        sock.bind((host, 0))
+        sock.listen(128)
+    except OSError:
+        sock.close()
+        raise
+    return f"{host}:{sock.getsockname()[1]}", sock
+
+
 def initialize_multihost(
     coordinator_address: str,
     num_processes: int,
     process_id: int,
     backend: "Optional[str]" = None,
     timeout: float = 300.0,
+    listener: "Optional[socket.socket]" = None,
 ) -> GroupWorld:
     """Join this process to its replica group: process 0 hosts a
     ``TCPStore`` at ``coordinator_address`` (``host:port``), the others
     connect to it.  ``backend`` defaults to NCCL when every process can own
-    a card of this host and to gloo otherwise.  Returns the
-    :class:`GroupWorld` the group's process groups are built from; sets no
-    process-global default group."""
+    a card of this host and to gloo otherwise.  ``listener`` (process 0
+    only) is a socket already listening at that port, from
+    :func:`coordinator_listener`: the store takes its fd over and closes it.
+    Returns the :class:`GroupWorld` the group's process groups are built
+    from; sets no process-global default group."""
     host, _, port = coordinator_address.rpartition(":")
     backend = backend or _default_backend(num_processes)
+    if listener is not None and process_id != 0:
+        raise ValueError("only process 0 hosts the coordinator's store")
     store = dist.TCPStore(
         host, int(port), num_processes, is_master=process_id == 0,
         timeout=timedelta(seconds=timeout), wait_for_workers=False,
+        master_listen_fd=None if listener is None else listener.detach(),
     )
     logger.info(
         "replica group member %d of %d at %s: in-group backend %s",
@@ -201,6 +227,7 @@ def host_sharded_array(
 
 __all__ = [
     "GroupWorld",
+    "coordinator_listener",
     "host_sharded_array",
     "initialize_multihost",
     "local_worlds",

@@ -374,6 +374,10 @@ class ProcessGroupDummy(ProcessGroup):
 # ---------------------------------------------------------------------------
 
 _HELLO_MAGIC = 0x7F7A11AA
+#: The longest one store ``get`` of a rendezvous waits: ``configure`` waits
+#: for a peer's address in such slices, so an ``abort()`` from another
+#: thread ends the wait within one (the JAX PG waits out its whole timeout).
+_RENDEZVOUS_SLICE_S = 0.5
 
 
 class _PeerConn:
@@ -651,10 +655,7 @@ class ProcessGroupTCP(ProcessGroup):
             # Deterministic connect direction avoids duplicate links: lower
             # ranks dial higher ranks; higher ranks accept.
             for peer in range(rank + 1, world_size):
-                peer_addr = store.get(
-                    f"{prefix}/rank_{peer}",
-                    timeout=max(deadline - time.monotonic(), 0.001),
-                )
+                peer_addr = self._rendezvous_get(store, f"{prefix}/rank_{peer}", deadline, gen)
                 phost, _, pport = peer_addr.rpartition(":")
                 sock = socket.create_connection(
                     (phost, int(pport)),
@@ -695,6 +696,22 @@ class ProcessGroupTCP(ProcessGroup):
             raise
         finally:
             store.close()
+
+    def _rendezvous_get(self, store: Any, key: str, deadline: float, gen: int) -> str:
+        """``store.get(key)`` until ``deadline``, in slices of
+        ``_RENDEZVOUS_SLICE_S``; raises ``_PGAborted`` once ``abort()`` (or
+        a newer configure) has retired generation ``gen``.  So no wait of
+        an aborted configure is left in the store's server, which may then
+        be stopped (``ParameterServer.shutdown``)."""
+        while True:
+            left = deadline - time.monotonic()
+            try:
+                return store.get(key, timeout=max(min(left, _RENDEZVOUS_SLICE_S), 0.001))
+            except TimeoutError:
+                if left <= _RENDEZVOUS_SLICE_S:
+                    raise
+            if self._generation != gen:
+                raise _PGAborted("process group aborted during configure")
 
     def _start_worker(self, gen: int) -> None:
         # Fresh queue per generation so stale ops/poison pills from a prior

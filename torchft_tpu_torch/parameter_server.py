@@ -19,12 +19,13 @@ from __future__ import annotations
 import json
 import logging
 import threading
+import time
 import urllib.error
 import urllib.request
 import uuid
 from abc import ABC, abstractmethod
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 from torchft_tpu_torch.coordination import StoreServer
 from torchft_tpu_torch.parallel.process_group import ProcessGroup, _routable_local_ip
@@ -57,8 +58,16 @@ class ParameterServer(ABC):
     loop). Reference: torchft/parameter_server.py:31-128.
     """
 
+    #: How long :meth:`shutdown` waits for its sessions' threads to end.
+    SHUTDOWN_JOIN_S = 30.0
+
     def __init__(self, port: int = 0, store_port: int = 0) -> None:
         self._store = StoreServer(bind=f":{store_port}")
+        # live sessions: id -> (its handler thread, its PG); closed once
+        # shutdown begins, so no session starts after it
+        self._sessions: "Dict[str, Tuple[threading.Thread, Optional[ProcessGroup]]]" = {}
+        self._sessions_lock = threading.Lock()
+        self._closing = False
 
         ps = self
 
@@ -94,7 +103,10 @@ class ParameterServer(ABC):
                 try:
                     ps._handle_session(session_id, store_addr)
                 except Exception:
-                    logger.exception("session %s failed", session_id)
+                    if ps._closing:
+                        logger.info("session %s ended by shutdown", session_id)
+                    else:
+                        logger.exception("session %s failed", session_id)
 
         self._server = ThreadingHTTPServer(("0.0.0.0", port), _Handler)
         self._server.daemon_threads = True
@@ -115,20 +127,57 @@ class ParameterServer(ABC):
         return f"http://{host}:{port}/new_session"
 
     def shutdown(self) -> None:
+        """Stop minting, end every session, then stop the store.
+
+        A session's thread may wait in its PG's ``configure`` (a store
+        ``get`` for its client, which may never come) or in ``forward``.
+        Each PG is aborted, again until its thread ends (an abort that
+        lands before ``configure`` starts is undone by it), and the threads
+        are joined within ``SHUTDOWN_JOIN_S``; only then is the native store
+        stopped.  Stopping it under a waiting ``get`` could kill the
+        process: the JAX ``ParameterServer`` keeps that order."""
         self._server.shutdown()
         self._server.server_close()
+        with self._sessions_lock:
+            self._closing = True
+        deadline = time.monotonic() + self.SHUTDOWN_JOIN_S
+        while True:
+            # read on every pass: a session that registered before the close
+            # may get its PG only now
+            with self._sessions_lock:
+                alive = [(t, pg) for t, pg in self._sessions.values() if t.is_alive()]
+            if not alive or time.monotonic() >= deadline:
+                break
+            for _, pg in alive:
+                if pg is not None:
+                    pg.abort()
+            alive[0][0].join(0.2)
+        if alive:
+            logger.warning("session threads %s still running at shutdown",
+                           [t.name for t, _ in alive])
         self._store.shutdown()
 
     # -- session plumbing --------------------------------------------------
 
     def _handle_session(self, session_id: str, store_addr: str) -> None:
-        pg = self.new_process_group()
-        # server is always rank 0 (reference parameter_server.py:170-175)
-        pg.configure(store_addr, replica_id="0", rank=0, world_size=2)
+        me = threading.current_thread()
+        with self._sessions_lock:
+            if self._closing:
+                return
+            self._sessions[session_id] = (me, None)
         try:
-            self.forward(session_id, pg)
+            pg = self.new_process_group()
+            with self._sessions_lock:
+                self._sessions[session_id] = (me, pg)
+            # server is always rank 0 (reference parameter_server.py:170-175)
+            pg.configure(store_addr, replica_id="0", rank=0, world_size=2)
+            try:
+                self.forward(session_id, pg)
+            finally:
+                pg.shutdown()
         finally:
-            pg.shutdown()
+            with self._sessions_lock:
+                self._sessions.pop(session_id, None)
 
     @classmethod
     def new_session(cls, address: str, timeout: float = 30.0) -> ProcessGroup:
